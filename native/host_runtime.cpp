@@ -1,6 +1,6 @@
 // Native host runtime for spectralae: hot host-side frame path.
 //
-// TPU-native equivalent of the reference's C++ host layer: the per-frame
+// The equivalent of the reference's C++ host layer: the per-frame
 // image<->tensor repacking the reference does with nested std::vectors
 // (netlib.cpp:37-77) and cv::resize (autoencoder.cpp:124).  These run on the
 // host every frame at video rate and feed jax.device_put; flat buffers +

@@ -7,7 +7,7 @@ path), then show that the trained net beats the fresh net by a large PSNR
 margin on HELD-OUT frames (a later time segment of the same scene), and
 dump before/after reconstructions.
 
-Outputs (committed under docs/convergence/):
+Outputs (written under docs/convergence/):
   summary.json            fresh/trained PSNR on held-out frames + config
   metrics.jsonl           per-burst on-device MSE trajectories
   input.png, recon_before.png, recon_after.png, kernels_after.png

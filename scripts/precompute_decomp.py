@@ -37,10 +37,7 @@ import bench
 
 
 def time_chained(step, x0, *, n, trials=4):
-    """Floor-seconds per link, via bench.time_chained — the ONE timing
-    helper carrying the per-process nonce (a repeated run with identical
-    seeded chains is relay-deduplicated and times ~0), the warm fetch
-    calibration, and the sub-floor validity filter."""
+    """Best-chain seconds per link, via bench.time_chained."""
     return bench.time_chained(step, x0, n=n, trials=trials).best
 
 

@@ -36,7 +36,7 @@ enable_compilation_cache(ROOT / ".jax_cache_tests")
 def main():
     t0 = time.time()
     # the multichip dryrun compiles the DP/TP train steps, sharded
-    # bursts (fused + Pallas-FFT), spatial forward, and the streaming
+    # bursts (fused + unfused), spatial forward, and the streaming
     # scans over the 8-device mesh — the suite's heaviest programs
     import __graft_entry__
     __graft_entry__.dryrun_multichip(8)

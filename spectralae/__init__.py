@@ -1,10 +1,10 @@
-"""spectralae: TPU-native spectral-domain convolutional autoencoder framework.
+"""spectralae: spectral-domain convolutional autoencoder framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 fabrii4/AutoEncoder-FFT (see SURVEY.md): coordinate-space and momentum-space
 convolutional autoencoder training with runtime-mutable depth, symmetric
 weight tying, inertia/adaptive-lr optimization, multiobjective kernel
-diversity, checkpointing, and SPMD batch/model parallelism over a TPU mesh.
+diversity, checkpointing, and SPMD batch/model parallelism over a device mesh.
 """
 
 __version__ = "0.1.0"

@@ -1,10 +1,11 @@
 """Device mesh + sharding layer: SPMD data/model parallelism.
 
 The reference is strictly single-device (SURVEY.md §2.9 — no DP/TP/PP, no
-communication backend).  These are *new* first-class components, built the
-TPU way: a ``jax.sharding.Mesh`` with named axes, ``NamedSharding``
-annotations on the batch and (optionally) the feature dimension of kernels,
-and XLA-inserted collectives over ICI.  No hand-written communication layer.
+communication backend).  These are *new* first-class components: a
+``jax.sharding.Mesh`` with named axes, ``NamedSharding`` annotations on the
+batch and (optionally) the feature dimension of kernels, and XLA-inserted
+collectives (NCCL over NVLink between GPUs).  No hand-written communication
+layer.  The mesh follows the algorithm, not a physical topology.
 
 Axes:
   - ``data``:  batch dimension of frames (DP; gradients psum-reduced by XLA).
@@ -126,7 +127,7 @@ def distributed_train_step(mesh: Mesh):
 
     Gradients reduce over 'data' and activations/kernels shard over 'model'
     purely through sharding propagation — XLA inserts the psum/all-gather
-    collectives over ICI (SURVEY.md §5.8).
+    collectives (SURVEY.md §5.8).
     """
     from ..train.modern import train_step
 

@@ -1,15 +1,16 @@
 """Multi-process (multi-host) runtime: DP/TP spanning hosts.
 
-The reference is a single process on one GPU (SURVEY.md §2.9).  On TPU
-pods, each host drives its local chips and ``jax.distributed`` federates
-them into one global device set; everything in :mod:`spectralae.dist.mesh`
-then works unchanged — ``jax.devices()`` is global, meshes span hosts, and
-XLA routes collectives over ICI within a slice and DCN across slices.
-This module is the thin host-side glue that the mesh layer needs:
+The reference is a single process on one GPU (SURVEY.md §2.9).  On a GPU
+cluster each process drives its local cards and ``jax.distributed``
+federates them into one global device set; everything in
+:mod:`spectralae.dist.mesh` then works unchanged — ``jax.devices()`` is
+global, meshes span hosts, and XLA routes collectives through NCCL.  This
+module is the thin host-side glue that the mesh layer needs:
 
-- :func:`init_multihost` — coordinator handshake (auto-detected on TPU
-  pods; explicit coordinator/process_id elsewhere, e.g. CPU test rigs,
-  where the gloo collectives backend is enabled automatically);
+- :func:`init_multihost` — coordinator handshake with an explicit
+  ``host:port`` coordinator, world size and process id (nothing on a GPU
+  cluster supplies them implicitly; CPU test rigs additionally get the
+  gloo collectives backend);
 - :func:`local_batch_to_global` — assemble the per-process slice of a
   batch into one globally-sharded array (each host feeds only its own
   frames; no host ever materializes the global batch);
@@ -29,28 +30,23 @@ import numpy as np
 from .mesh import batch_sharding
 
 
-def init_multihost(coordinator: str | None = None,
-                   num_processes: int | None = None,
-                   process_id: int | None = None) -> None:
+def init_multihost(coordinator: str, num_processes: int,
+                   process_id: int) -> None:
     """Join (or create) the multi-process runtime.
 
-    On TPU pods call with no arguments — the TPU metadata service supplies
-    coordinator/process topology.  Elsewhere pass an explicit
-    ``host:port`` coordinator, the world size, and this process's id.
-    CPU backends get the gloo cross-process collectives implementation.
+    ``coordinator`` is the ``host:port`` of process 0 (any free port), and
+    every process passes the same ``num_processes`` and its own
+    ``process_id``.  CPU backends get the gloo cross-process collectives
+    implementation.
     """
     try:
         jax.config.update("jax_cpu_collectives_implementation", "gloo")
     except Exception:  # older jaxlib without the option
         pass
     try:
-        if coordinator is None and num_processes is None \
-                and process_id is None:
-            jax.distributed.initialize()
-        else:
-            jax.distributed.initialize(coordinator_address=coordinator,
-                                       num_processes=num_processes,
-                                       process_id=process_id)
+        jax.distributed.initialize(coordinator_address=coordinator,
+                                   num_processes=num_processes,
+                                   process_id=process_id)
     except RuntimeError as e:
         if "already initialized" not in str(e).lower():
             raise

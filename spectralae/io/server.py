@@ -11,7 +11,7 @@ AOT-compiled :class:`ServingModel` —
   ``.npy``-serialized model output.  Content type
   ``application/octet-stream``.
 
-Device calls are serialized under a lock (one TPU executable, many HTTP
+Device calls are serialized under a lock (one device executable, many HTTP
 worker threads); request decode/encode runs concurrently.
 """
 
@@ -120,8 +120,7 @@ class InferenceServer:
     :meth:`serve_forever` to block, or :meth:`start`/:meth:`shutdown`
     for a background thread (tests, embedding).  ``warmup`` runs one
     zero-filled inference before the server accepts traffic so the
-    first real request doesn't pay device compile/dispatch latency
-    (measured ~87 s cold vs 30 ms warm on the remote-TPU rig).
+    first real request doesn't pay device compile/dispatch latency.
     ``batch_window_ms > 0`` enables dynamic batching of concurrent
     requests (:class:`_DynamicBatcher`; needs a batch-polymorphic
     artifact — ignored for fixed-batch exports).

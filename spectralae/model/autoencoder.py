@@ -110,7 +110,7 @@ def forward_fft(params: AEParams, x: jax.Array, scales: Sequence[int], *,
             # kernel spectra are recomputed per step under jit — the
             # functional replacement for the reference's lazily-filled
             # host-side net_cfreq cache (fft_backproplib.cu:1146-1161):
-            # cheap on TPU and always consistent with the coordinate
+            # cheap (small matmuls) and always consistent with the coordinate
             # kernels, so no invalidation protocol is needed
             C = spectral.kernel_rfft(c, cx, cy)
             return spectral.spectral_conv(Xs, C, b, cx, cy,

@@ -1,8 +1,8 @@
-"""Compact-support DFT transforms: kernel↔spectrum as MXU matmuls.
+"""Compact-support DFT transforms: kernel↔spectrum as small matmuls.
 
-TPU-native optimization replacing the reference's per-iteration kernel FFT
-churn.  Because conv kernels live on a tiny Nk×Nl support (25 taps for 5×5),
-their full Nx×Ny spectra are rank-P DFT projections:
+Replaces the reference's per-iteration kernel FFT churn.  Because conv
+kernels live on a tiny Nk×Nl support (25 taps for 5×5), their full Nx×Ny
+spectra are rank-P DFT projections:
 
   forward  (pad+rfft2,      fft_backproplib.cu:1276-1282):
       C(ω) = Σ_{k,l} c[k,l] · e^{-2πi ω·r_kl}
@@ -29,6 +29,8 @@ import functools
 import numpy as np
 import jax
 import jax.numpy as jnp
+
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @functools.lru_cache(maxsize=None)
@@ -61,7 +63,7 @@ def lag_basis(nx: int, ny: int, hx: int, hy: int):
     points).  Lag periodicity (``v mod N``) is inherent in the complex
     exponential, so windows wider than the grid alias exactly like the
     FFT path did.  Consumed by the correlation-space burst precompute
-    (train/fft_corr) and the Pallas window kernels (ops/pallas_windows).
+    (train/fft_corr).
     """
     from .spectral import _hermitian_weights
     w = _hermitian_weights(nx, ny).astype(np.float64)
@@ -76,21 +78,19 @@ def lag_basis(nx: int, ny: int, hx: int, hy: int):
             np.asarray(w[:, None] * np.sin(ay), np.float32))
 
 
-def kernel_spectrum(c: jax.Array, nx: int, ny: int,
-                    precision=None) -> jax.Array:
+def kernel_spectrum(c: jax.Array, nx: int, ny: int) -> jax.Array:
     """``rfft2(kernel_pad(c))`` as two per-axis matmuls.
 
-    c: ``[..., Nk, Nl]`` real → ``[..., Nx, Ny//2+1]`` complex.
-    ``precision``: pass ``"highest"`` when the spectrum anchors a
-    cancellation-sensitive decomposition (the fused corr precompute) —
-    TPU default matmul precision rounds the tap operands to bf16, and an
-    anchor-spectrum error is never measured back.
+    c: ``[..., Nk, Nl]`` real → ``[..., Nx, Ny//2+1]`` complex.  Every
+    matmul is f32 at ``HIGHEST`` precision (the spectrum anchors
+    cancellation-sensitive decompositions, and a reduced-precision matmul
+    mode would round the tap operands).
     """
     nk, nl = c.shape[-2], c.shape[-1]
     cx, sx, cy, sy = map(jnp.asarray, _axis_bases(nk, nl, nx, ny)[:4])
     ein = functools.partial(jnp.einsum,
                             preferred_element_type=jnp.float32,
-                            precision=precision)
+                            precision=HIGHEST)
     # columns first: T = c · e^{-iθy}   [..., Nk, Nyr]
     tr = ein("...kl,ly->...ky", c, cy)
     ti = -ein("...kl,ly->...ky", c, sy)
@@ -115,22 +115,13 @@ def kernel_project(D: jax.Array, nk: int, nl: int, nx: int, ny: int) -> jax.Arra
     w = jnp.asarray(hermy)
     Dr = D.real * w
     Di = D.imag * w
+    ein = functools.partial(jnp.einsum, preferred_element_type=jnp.float32,
+                            precision=HIGHEST)
     # columns: A·e^{±iθy} partials        [..., Nx, Nl]
-    rc = jnp.einsum("...xy,ly->...xl", Dr, cy,
-                    preferred_element_type=jnp.float32)
-    rs = jnp.einsum("...xy,ly->...xl", Dr, sy,
-                    preferred_element_type=jnp.float32)
-    ic = jnp.einsum("...xy,ly->...xl", Di, cy,
-                    preferred_element_type=jnp.float32)
-    is_ = jnp.einsum("...xy,ly->...xl", Di, sy,
-                     preferred_element_type=jnp.float32)
+    rc = ein("...xy,ly->...xl", Dr, cy)
+    rs = ein("...xy,ly->...xl", Dr, sy)
+    ic = ein("...xy,ly->...xl", Di, cy)
+    is_ = ein("...xy,ly->...xl", Di, sy)
     # rows: contract ωx                   [..., Nk, Nl]
-    g = (jnp.einsum("kx,...xl->...kl", cx, rc,
-                    preferred_element_type=jnp.float32)
-         - jnp.einsum("kx,...xl->...kl", sx, rs,
-                      preferred_element_type=jnp.float32)
-         - jnp.einsum("kx,...xl->...kl", sx, ic,
-                      preferred_element_type=jnp.float32)
-         - jnp.einsum("kx,...xl->...kl", cx, is_,
-                      preferred_element_type=jnp.float32))
-    return g
+    return (ein("kx,...xl->...kl", cx, rc) - ein("kx,...xl->...kl", sx, rs)
+            - ein("kx,...xl->...kl", sx, ic) - ein("kx,...xl->...kl", cx, is_))

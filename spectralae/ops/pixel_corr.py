@@ -14,12 +14,11 @@ way to compute them, but by Parseval it is algebraically identical to:
     e0[e]         = mean_b Σ_p eg_e(p)                    (EG DC bin)
     X0[d]         = mean_b Σ_p x_d(p)                     (X DC bin)
 
-This removes the signal FFTs entirely (the rfft2 is ~75 % of the fused
-burst at 2048² — measured; see BASELINE.md), making the precompute
-backend-agnostic.  As plain XLA it is a *correctness alternative*, not a
-speed path: the shift stacks materialize in HBM and the lag contraction
-is an MXU-hostile skinny matmul (measured 184 ms at 2048² — stay on the
-spectral route for speed; `pallas_windows="pixel"` is opt-in).  The
+This removes the signal FFTs entirely, making the precompute FFT-free.  As
+plain XLA it is a *correctness alternative*, not a speed path: the shift
+stacks materialize in device memory and the lag contraction is a skinny
+matmul (stay on the spectral route for speed; `pallas_windows="pixel"` is
+opt-in).  The
 anchoring-precision contract is preserved: ``eg`` is computed *per pixel*
 as a 243-term f32 contraction minus x (error at signal·eps scale, exactly
 like the spectral path's bin-wise EG), never derived from the
@@ -31,7 +30,7 @@ The lag windows become shift-stack contractions
     A[(d,u)](i,j) = x_d(i−u, j)   (row shifts, u ∈ [−h, h])
     B[(e,v)](i,j) = x_e(i, j+v)   (column rolls)
 
-— one [D·(2h+1), P] × [P, D·(2h+1)] MXU contraction over all pixels.
+— one [D·(2h+1), P] × [P, D·(2h+1)] contraction over all pixels.
 Lag order matches :func:`spectralae.ops.dft.lag_basis` (index 0 ↔ −h);
 circular rolls reproduce the DFT's mod-N lag aliasing exactly.
 
@@ -93,8 +92,8 @@ def pixel_anchor_windows(x: jax.Array, K0taps: jax.Array, hx2: int,
       K0taps: ``[D, D, 2hx2+1, 2hy2+1]`` composed anchor taps.
 
     Returns ``(XX [D,D,4hx2+1,4hy2+1], EGw [D,D,2hx2+1,2hy2+1], seg, e0,
-    X0)`` — the :func:`spectralae.ops.pallas_windows.anchor_windows`
-    contract plus the X DC scalars (free here, no spectrum to read them
+    X0)`` — the spectral route's window contract
+    (train/fft_corr.corr_precompute_fused) plus the X DC scalars (free here, no spectrum to read them
     from at the call site).
     """
     B = x.shape[0]

@@ -1,9 +1,9 @@
 """Momentum-space (frequency-domain) ops on the rfft2 half-spectrum layout.
 
-TPU-native design: the reference's cuFFT plans + hand-written device kernels
-(source/fft_backproplib.cu) become ``jnp.fft.rfft2``/``irfft2`` (XLA FFT) plus
-pure-jnp gather/mask/einsum ops that XLA fuses; the per-call plan churn and
-cudaMalloc traffic disappear under ``jit``.
+Design: the reference's cuFFT plans + hand-written device kernels
+(source/fft_backproplib.cu) become ``jnp.fft.rfft2``/``irfft2`` (XLA's FFT,
+cuFFT on the GPU) plus pure-jnp gather/mask/einsum ops that XLA fuses; the
+per-call plan churn and cudaMalloc traffic disappear under ``jit``.
 
 Spectrum layout: ``[..., Nx, Ny//2+1]`` complex — identical to cuFFT R2C
 (fft_backproplib.cu:775).  All index quirks of the reference's ``resize``
@@ -18,6 +18,10 @@ import functools
 import numpy as np
 import jax
 import jax.numpy as jnp
+
+# every f32 dot of the package runs at full f32 precision: on the GPU a
+# DEFAULT-precision f32 dot or conv may run in TF32 (~3 decimal digits)
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def rfft2(x: jax.Array) -> jax.Array:
@@ -119,6 +123,9 @@ def spectral_conv(X: jax.Array, C: jax.Array, b: jax.Array, nx: int, ny: int,
     the DC bin — equivalent to a spatial ``+b[m]`` after the normalized
     inverse FFT.  Reference: ``conv_k`` fft_backproplib.cu:162-189.
 
+    The evaluation (one complex einsum, or a re/im broadcast-sum) is
+    chosen by :func:`spectralae.core.backend.spectral_conv_impl`.
+
     Args:
       X: ``[B, D, Nx, Nyr]`` complex input spectra.
       C: ``[M, D, Nx, Nyr]`` complex kernel spectra.
@@ -126,34 +133,43 @@ def spectral_conv(X: jax.Array, C: jax.Array, b: jax.Array, nx: int, ny: int,
       compute_dtype: optional reduced dtype (``jnp.bfloat16``) for the
         streamed operands; accumulation stays f32.
     """
-    from .pallas_kernels import _on_tpu
-    concrete = all(type(s) is int for s in X.shape)
-    if X.ndim == 4 and concrete and _on_tpu():
-        # the tiny-d contraction at every bin lowers terribly through
-        # XLA einsum (huge broadcast temporaries); the fused Pallas kernel
-        # is ~7× faster at 512² and carries a custom VJP for autodiff.
-        # Symbolic dims (jax.export batch polymorphism) can't size the
-        # ω tiles, so polymorphic exports take the einsum path.
-        from .pallas_kernels import spectral_conv_fused
-        return spectral_conv_fused(X, C, b, nx, ny, scale_by_dm,
-                                   compute_dtype)
+    from ..core.backend import spectral_conv_impl
+    impl = spectral_conv_impl(X.shape, compute_dtype)
+    if impl == "split":
+        return spectral_conv_split(X, C, b, nx, ny, scale_by_dm=scale_by_dm)
     return spectral_conv_einsum(X, C, b, nx, ny, scale_by_dm=scale_by_dm,
                                 compute_dtype=compute_dtype)
+
+
+def spectral_conv_split(X: jax.Array, C: jax.Array, b: jax.Array,
+                        nx: int, ny: int, *,
+                        scale_by_dm: bool = True) -> jax.Array:
+    """The pointwise conv as split re/im broadcast-multiply-sums over
+    ``d`` — elementwise work that XLA emits as one reduction fusion, with
+    no matmul (and so no reduced-precision matmul mode) involved."""
+    m = C.shape[0]
+    scale = (1.0 / m) if scale_by_dm else 1.0
+    xr, xi = (X.real * scale)[:, None], (X.imag * scale)[:, None]
+    cr, ci = C.real[None], C.imag[None]
+    outr = jnp.sum(xr * cr - xi * ci, axis=2)
+    outi = jnp.sum(xr * ci + xi * cr, axis=2)
+    out = jax.lax.complex(outr, outi)
+    return out.at[..., 0, 0].add(b.astype(out.dtype) * (nx * ny))
 
 
 def spectral_conv_einsum(X: jax.Array, C: jax.Array, b: jax.Array,
                          nx: int, ny: int, *,
                          scale_by_dm: bool = True,
                          compute_dtype=None) -> jax.Array:
-    """The plain-jnp pointwise conv (no Pallas dispatch) — used by the
-    reference-path burst bodies, whose per-iteration loops are hurt by
-    per-call kernel launches (200 launches/burst measured 3× slower)."""
+    """The pointwise conv as one complex einsum (f32 at ``HIGHEST``
+    precision), or four real bf16 einsums with f32 accumulation when
+    ``compute_dtype`` is given."""
     m = C.shape[0]
     scale = (1.0 / m) if scale_by_dm else 1.0
     Xs = X * scale
     if compute_dtype is not None:
         # complex bf16 doesn't exist: run the four real products reduced,
-        # accumulate f32 (mirrors the fused kernel's mixed precision)
+        # accumulate f32
         cd = compute_dtype
         f32 = jnp.float32
         xr, xi = Xs.real.astype(cd), Xs.imag.astype(cd)
@@ -168,7 +184,7 @@ def spectral_conv_einsum(X: jax.Array, C: jax.Array, b: jax.Array,
                          preferred_element_type=f32)
         out = jax.lax.complex(outr, outi)
     else:
-        out = jnp.einsum("mdxy,bdxy->bmxy", C, Xs)
+        out = jnp.einsum("mdxy,bdxy->bmxy", C, Xs, precision=HIGHEST)
     return out.at[..., 0, 0].add(b.astype(out.dtype) * (nx * ny))
 
 
@@ -203,11 +219,10 @@ def kernel_rfft(c: jax.Array, nx: int, ny: int) -> jax.Array:
     entry of the reference (``StoreLoad_cfreq`` fft_backproplib.cu:1146-1161).
 
     Under jit this is recomputed per step — as a rank-P restricted-DFT
-    matmul on the MXU (:func:`spectralae.ops.dft.kernel_spectrum`), not a
-    pad-to-full-grid FFT: at 512² the padded route materializes
-    ``M·D·Nx·Ny`` zeros and runs M·D full-size transforms per stage, which
-    dominated the measured forward (9 ms → ~2 ms at 512² b4).  Bit-equal to
-    ``rfft2(kernel_pad(c))`` (tests/test_dft_ops.py).
+    matmul (:func:`spectralae.ops.dft.kernel_spectrum`), not a
+    pad-to-full-grid FFT: the padded route materializes ``M·D·Nx·Ny``
+    zeros and runs M·D full-size transforms per stage.  Equal to
+    ``rfft2(kernel_pad(c))`` to f32 rounding (tests/test_dft_ops.py).
 
     For large supports the separable-DFT FLOPs (∝ Nk per output bin)
     overtake the FFT's log-factor and the padded-FFT route wins — the
@@ -234,7 +249,7 @@ def _hermitian_weights(nx: int, ny: int) -> np.ndarray:
     the reference halves their norm (``n/=2``, fft_backproplib.cu:495) which
     doubles their weight.  The last column is self-conjugate (weight 1) only
     for even ``ny`` — for odd ``ny`` it pairs like any interior column
-    (matching ops/dft.py and the Pallas herm weights).
+    (matching ops/dft.py).
     """
     nyr = ny // 2 + 1
     w = np.full((nyr,), 2.0, np.float32)

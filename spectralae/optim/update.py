@@ -74,8 +74,7 @@ def burst_inertia(w: jax.Array, g: jax.Array, mom: jax.Array,
     """The burst weight update (``backprop_d``, fft_backproplib.cu:605-652):
     normalized/clipped gradient with inertia, effective lr already scaled
     (the reference burst uses ``0.1·del``).  Shared by every jnp-level
-    burst body so the clipping rule lives in ONE place; the in-Pallas-
-    kernel copies mirror it and are equality-tested against these paths.
+    burst body so the clipping rule lives in ONE place.
 
     ``scale``: optional per-entry rescale of the clipped step (not the
     momentum) — the extended-tape corr body uses it to convert the

@@ -58,7 +58,8 @@ def _transpose_patches(E: jax.Array, nk: int, nl: int,
     pad = ((-ik0, nk - 1 + ik0), (-il0, nl - 1 + il0))
     p = lax.conv_general_dilated_patches(
         E[None], filter_shape=(nk, nl), window_strides=(1, 1), padding=pad,
-        dimension_numbers=("NCHW", "OIHW", "NCHW"))[0]
+        dimension_numbers=("NCHW", "OIHW", "NCHW"),
+        precision=lax.Precision.HIGHEST)[0]
     return p.reshape(E.shape[0], nk * nl, E.shape[1], E.shape[2])
 
 
@@ -78,7 +79,7 @@ def coord_ref_gradients(in_s: jax.Array, out_s: jax.Array, hin_s: jax.Array,
         jax.linear_transpose, 77 MFLOP / ~5 MB at 128² (measured: the old
         3×jax.grad closures compile to the SAME 3-conv HLO after DCE, so
         this is a clarity win, not a speed win — the step is
-        dispatch-bound, not compute-bound, on this rig).  'patches'
+        dispatch-bound, not compute-bound).  'patches'
         materializes tap-window patches and forms the gradients as
         long-contraction matmuls; it moves ~16× more HBM bytes and
         measured slower — kept as a tested alternative formulation.
@@ -99,28 +100,26 @@ def coord_ref_gradients(in_s: jax.Array, out_s: jax.Array, hin_s: jax.Array,
             hin_s = hin_s.at[:, 0, :].set(0.0).at[:, :, 0].set(0.0)
         PE = _transpose_patches(E, nk, nl, tap_mode)         # [D,P,Nx,Ny]
         fp = f.reshape(D, M, nk * nl)
-        delta_h = jnp.einsum("dmp,dpab->mab", fp, PE)
+        delta_h = jnp.einsum("dmp,dpab->mab", fp, PE,
+                             precision=lax.Precision.HIGHEST)
         if tap_mode == "ref_cpu":
             delta_h = delta_h.at[:, 0, :].set(0.0).at[:, :, 0].set(0.0)
         Pd = _transpose_patches(delta_h, nk, nl, tap_mode)   # [M,P,Nx,Ny]
-        dc = jnp.einsum("dab,mpab->mdp", in_s, Pd).reshape(M, D, nk, nl)
-        df = jnp.einsum("mab,dpab->dmp", hin_s, PE).reshape(D, M, nk, nl)
+        dc = jnp.einsum("dab,mpab->mdp", in_s, Pd,
+                        precision=lax.Precision.HIGHEST).reshape(M, D, nk, nl)
+        df = jnp.einsum("mab,dpab->dmp", hin_s, PE,
+                        precision=lax.Precision.HIGHEST).reshape(D, M, nk, nl)
     else:
         # three transposed convs via jax.linear_transpose (no primal
-        # forwards — the maps are linear).  pallas=False is load-bearing:
-        # the Pallas conv carries a custom_vjp, which linear_transpose
-        # cannot see through — these closures are gradient machinery and
-        # must stay on the transposable lax conv
+        # forwards — the maps are linear)
         conv_h = lambda h: coord.conv2d(h[None], f, None, tap_mode=tap_mode,
-                                        scale_by_dm=False, pallas=False)[0]
+                                        scale_by_dm=False)[0]
         conv_cw = lambda cc: coord.conv2d(in_s[None], cc, None,
                                           tap_mode=tap_mode,
-                                          scale_by_dm=False,
-                                          pallas=False)[0]
+                                          scale_by_dm=False)[0]
         conv_fw = lambda ff: coord.conv2d(hin_s[None], ff, None,
                                           tap_mode=tap_mode,
-                                          scale_by_dm=False,
-                                          pallas=False)[0]
+                                          scale_by_dm=False)[0]
         (delta_h,) = jax.linear_transpose(conv_h, hin_s)(E)
         (dc,) = jax.linear_transpose(
             conv_cw,
@@ -208,12 +207,12 @@ def coord_step_dp(in_b: jax.Array, out_b: jax.Array, hin_b: jax.Array,
     """Batched coordinate-space step: reference-exact gradients averaged
     over a batch of frames (the coord analog of ``fft_burst_dp``).
 
-    The reference coord trainer is batch-of-one and dispatch-bound on TPU
-    (~1 ms for 77 MFLOP at 128²); batching B frames into one step amortizes
-    the dispatch while keeping reference update semantics.  At B=1 it equals
+    The reference coord trainer is batch-of-one and dispatch-bound (77
+    MFLOP at 128²); batching B frames into one step amortizes the
+    dispatch while keeping reference update semantics.  At B=1 it equals
     :func:`coord_step` exactly.  Inside ``shard_map`` with the batch sharded
-    over ``axis_name``, the (tiny) averaged gradients are ``pmean``-ed over
-    ICI each step — the same collective pattern as the distributed burst.
+    over ``axis_name``, the (tiny) averaged gradients are ``pmean``-ed each
+    step — the same collective pattern as the distributed burst.
     """
     dM, dD, nk, nl = c.shape
     # under shard_map (axis_name set), the 'transpose' impl's
@@ -241,7 +240,7 @@ def distributed_coord_step(mesh, *, lr: float = 0.2, alpha: float = 0.9,
                            tap_mode: TapMode = "ref_gpu", sym: bool = False,
                            active: bool = False):
     """Build a jitted multi-chip coord step: frame batch sharded over
-    'data', params replicated, gradients pmean-ed over ICI — the coord
+    'data', params replicated, gradients pmean-ed over the mesh — the coord
     analog of :func:`spectralae.train.fft_dp.distributed_burst`.
 
     The per-step collective moves ``M·D·Nk·Nl·2 + M + D`` floats (the

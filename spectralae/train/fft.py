@@ -11,7 +11,7 @@ the training patch once, then runs 100 inner iterations of:
   6. recompute the output spectrum through the two-stage frequency conv
      (1460-1461) and log the Parseval MSE.
 
-TPU-native design: the whole burst is ONE jitted ``lax.fori_loop`` — no
+Design: the whole burst is ONE jitted ``lax.fori_loop`` — no
 per-iteration host syncs, no plan/alloc churn (the reference does ~40
 cudaMallocs and 2 plan creations per call, plus a device→host reduce and a
 ``cout`` per iteration).  The MSE trajectory is collected into an on-device
@@ -28,6 +28,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from ..ops import dft, spectral
+from ..ops.spectral import HIGHEST
 from ..losses.losses import diversity_gradients
 from ..optim.update import GRAD_CLIP, burst_inertia
 
@@ -65,11 +66,15 @@ def gradient_k_io(X: jax.Array, Y: jax.Array, O: jax.Array,
     norm = nx * ny
     Norm = norm * 2.0 * dM * dD * nx * ny
     E = O - Y
-    S = jnp.einsum("dxy,dmxy->mxy", E, jnp.conj(Ff))
-    H = jnp.einsum("mdxy,dxy->mxy", Cf, X)
+    S = jnp.einsum("dxy,dmxy->mxy", E, jnp.conj(Ff),
+                   precision=HIGHEST)
+    H = jnp.einsum("mdxy,dxy->mxy", Cf, X,
+                   precision=HIGHEST)
     H = H.at[:, 0, 0].add(b.astype(H.dtype) * norm)
-    dc = jnp.einsum("mxy,dxy->mdxy", S, jnp.conj(X)) / Norm
-    df = jnp.einsum("dxy,mxy->dmxy", E, jnp.conj(H)) / Norm
+    dc = jnp.einsum("mxy,dxy->mdxy", S, jnp.conj(X),
+                   precision=HIGHEST) / Norm
+    df = jnp.einsum("dxy,mxy->dmxy", E, jnp.conj(H),
+                   precision=HIGHEST) / Norm
     db = S[:, 0, 0].real * norm / Norm
     dp = E[:, 0, 0].real * norm / Norm
     return dc, df, db, dp
@@ -96,8 +101,8 @@ def _two_stage_output(X, c, f, b, p, nx, ny, scale_by_dm=True, impl="fft"):
     """Recompute the output spectrum O = F·(C·X) (fft_backproplib.cu:1460-1461)."""
     Cf = _kernel_spectrum(c, nx, ny, impl)
     Ff = _kernel_spectrum(f, nx, ny, impl)
-    # einsum variant: a Pallas launch per inner iteration would dominate
-    # this reference-path loop (measured 3× slower)
+    # the plain einsum: this body is the reference the routed paths are
+    # compared with
     H = spectral.spectral_conv_einsum(X[None], Cf, b, nx, ny,
                                       scale_by_dm=scale_by_dm)[0]
     O = spectral.spectral_conv_einsum(H[None], Ff, p, nx, ny,
@@ -133,7 +138,7 @@ def fft_burst(x: jax.Array, expout: jax.Array, out0: jax.Array,
       maxdiff: multiobjective kernel-diversity combination
         ``g ← w0·g − w1·g_div`` (fft_backproplib.cu:1252, 665-694).
       impl: kernel↔spectrum transform implementation — "dft" (default)
-        maps the compact-support transforms onto MXU matmuls
+        maps the compact-support transforms onto small matmuls
         (:mod:`spectralae.ops.dft`); "fft" is the literal pad+rfft2 path.
         Both are numerically equivalent (tests/test_dft_ops.py).
     """

@@ -46,9 +46,9 @@ invariant as the ω-space kernels' per-bin accumulation, tested through a
 effect: gc and gf share one T tensor, so no quadratic-in-c machinery.
 
 All lag gathers/scatters have static index maps lowered as dense one-hot
-MXU matmuls (XLA gathers are scalar-slow on TPU); centered lags come from
-roll+slice with periodic tiling, so sub-window grids alias exactly (the
-DFT only sees v mod N).  DC-bin bias injections (conv_k, cu:183-184) are
+matmuls (instead of scalar gathers); centered lags come from roll+slice
+with periodic tiling, so sub-window grids alias exactly (the DFT only sees
+v mod N).  DC-bin bias injections (conv_k, cu:183-184) are
 handled as exact scalar corrections.
 """
 
@@ -65,6 +65,12 @@ from ..losses.losses import diversity_gradients
 from ..ops import dft, spectral
 from ..optim.update import burst_inertia
 from .fft import FFTBurstResult
+
+# every dot here is f32 at full precision (a DEFAULT-precision f32 dot may
+# run in TF32 on the GPU, and the anchored decomposition's cancellations
+# need the f32 mantissa)
+_ein = functools.partial(jnp.einsum, precision=lax.Precision.HIGHEST)
+_mm = functools.partial(jnp.matmul, precision=lax.Precision.HIGHEST)
 
 
 @functools.lru_cache(maxsize=None)
@@ -87,8 +93,8 @@ def _lag_maps(nk: int, nl: int):
         return (ax + hax) * wy + (ay + hay)
 
     def onehot(idx, n):
-        """Gather/scatter as dense one-hot (XLA gathers are scalar-slow on
-        TPU; these all become MXU matmuls)."""
+        """Gather/scatter as a dense one-hot matrix (the static maps
+        then become matmuls instead of scalar gathers)."""
         m = np.zeros((idx.size, n), np.float32)
         m[np.arange(idx.size), idx.reshape(-1)] = 1.0
         return m
@@ -106,7 +112,7 @@ def _lag_maps(nk: int, nl: int):
     n2, n4 = w2x * w2y, w4x * w4y
     pair_oh = onehot(pair2lag, n2)
     # the XXd one-hot is [n4, n2²] — fine at 5×5 (7.6 MB: the per-burst
-    # build rides the MXU), but it grows as k⁶ (3.75 GB at 13×13, where
+    # build is one matmul), but it grows as k⁶ (3.75 GB at 13×13, where
     # materializing it as a jit constant stalls compilation for minutes).
     # Large kernels ship the tiny int32 index map instead; the build is
     # then ONE gather per burst (XXd is loop-invariant), so gather
@@ -123,22 +129,13 @@ def _lag_maps(nk: int, nl: int):
 
 
 # the separable restricted-iDFT lag-window bases live with the other DFT
-# primitives (shared with ops/pallas_windows — ops must not import train)
+# primitives
 _lag_basis = dft.lag_basis
 
-# Plane-pixel budgets above which resolution-sized transforms serialize
-# (per-plane/chunked instead of one batched call).  Two distinct walls:
-#
-# - Pallas rfft2_mixed: the wrapper-recursion TRANSIENTS of 3 concurrent
-#   8192² planes OOM HBM (measured 22.8 vs 15.75 GB) while one plane
-#   fits — chunk above ~2 planes' worth of 8192² pixels.
-# - XLA's FFT custom-call: its batched workspace only breaks one step
-#   later — 3×8192² fit batched for two rounds of records (81.2 ms row)
-#   but 3×16384² is a 15.0 GB fit-or-OOM coin flip (compile-time
-#   memory_analysis; 13.1 GB serialized) — so the XLA path serializes
-#   only ABOVE the proven batched case, keeping the 8192² row on its
-#   measured-faster batched program.
-_FFT_SERIALIZE_PIXELS = 2 * 8192 * 8192
+# Plane-pixel budget above which the fused precompute's signal transform
+# serializes per plane (lax.map) instead of one batched FFT call: same
+# flops and bytes, ~planes× lower transient peak.  Not yet derived from the
+# device's memory (ROADMAP, large-frame memory policy).
 _XLA_FFT_SERIALIZE_PIXELS = 4 * 8192 * 8192
 
 
@@ -147,11 +144,11 @@ def _corr_windows(prods, nx, ny, hx, hy):
     cross-correlations whose half-spectra are ``prods [planes, nx, nyr]``
     (complex).  See :func:`_lag_basis`.
 
-    MXU shaping: the y-stage (the FLOP bulk — it contracts the full
+    Matmul shaping: the y-stage (the FLOP bulk — it contracts the full
     half-spectrum row length) runs as ONE stacked real matmul
     ``[p·nx, 2·nyr] @ [2·nyr, 2·vy]`` computing [sr si] together, instead
     of four narrow width-vy einsums — same FLOPs, 4× fewer and 2× wider
-    matmuls (vy is 9–17, far under the 128 MXU lane tile).  The x-stage
+    matmuls (vy is 9–17).  The x-stage
     output is window-sized and negligible.
     """
     bxc, bxs, byc, bys = (jnp.asarray(t)
@@ -159,12 +156,8 @@ def _corr_windows(prods, nx, ny, hx, hy):
     p, _, nyr = prods.shape
     vy = byc.shape[1]
     pr, pi = prods.real, prods.imag
-    # full-f32 accumulation (TPU's default matmul precision is reduced;
-    # these long-axis reductions feed cancellation-sensitive tensors).
-    # Measured at 2048²: dropping to "high" (bf16_3x) changes nothing —
-    # the stage is HBM-bound, not pass-count-bound — so keep the safest
-    # setting
-    ein = functools.partial(jnp.einsum, precision="highest")
+    # full-f32 accumulation (_ein): these long-axis reductions feed
+    # cancellation-sensitive tensors
     #   sr = pr·byc − pi·bys ,  si = pr·bys + pi·byc
     # = [pr pi] (contraction-stacked) @ [[byc bys], [−bys byc]]
     ops = jnp.concatenate([pr, pi], axis=-1)          # [p, nx, 2nyr]
@@ -173,10 +166,10 @@ def _corr_windows(prods, nx, ny, hx, hy):
          jnp.concatenate([-bys, byc], axis=1)], axis=0)  # [2nyr, 2vy]
     # flattened to ONE [p·nx, 2nyr] @ [2nyr, 2vy] matmul (a batched
     # einsum over p lowers to p narrow matmuls)
-    s = ein("rz,zw->rw", ops.reshape(p * ops.shape[1], -1),
-            basis).reshape(p, -1, 2 * vy)             # [p, nx, 2vy]
+    s = _ein("rz,zw->rw", ops.reshape(p * ops.shape[1], -1),
+             basis).reshape(p, -1, 2 * vy)            # [p, nx, 2vy]
     sr, si = s[..., :vy], s[..., vy:]
-    return ein("pxv,xu->puv", sr, bxc) - ein("pxv,xu->puv", si, bxs)
+    return _ein("pxv,xu->puv", sr, bxc) - _ein("pxv,xu->puv", si, bxs)
 
 
 def _herm_w(nx: int, ny: int):
@@ -218,14 +211,14 @@ def corr_precompute(x, expout, out0, c0, f0, *, scale_by_dm=True,
     # map the iterate's R(ΔK) identity is built on)
     P = nk * nl
     hx2, hy2 = maps["l2ext"]
-    K2 = jnp.einsum("emq,mdr->edqr", f0.reshape(dD, dM, P),
-                    c0.reshape(dM, dD, P)).reshape(dD * dD, P * P)
-    K0taps = (K2 @ jnp.asarray(maps["g_scatter_pair"])
+    K2 = _ein("emq,mdr->edqr", f0.reshape(dD, dM, P),
+              c0.reshape(dM, dD, P)).reshape(dD * dD, P * P)
+    K0taps = (_mm(K2, jnp.asarray(maps["g_scatter_pair"]))
               ).reshape(dD, dD, 2 * hx2 + 1, 2 * hy2 + 1)
     K0f = dft.kernel_spectrum(K0taps, nx, ny)          # [D, D, nx, nyr]
     s1 = (1.0 / (dM * dD)) if scale_by_dm else 1.0
-    # elementwise d-reduce: D is far below the MXU tile, the VPU is
-    # natively fp32, and this avoids matmul-emulation passes at 2048²
+    # elementwise d-reduce: D is a tiny contraction, and elementwise f32
+    # needs no matmul precision mode
     O0fwd = jnp.sum(K0f[None] * X[:, None], axis=2) * s1
     G0 = O0fwd - O0
     # batch-averaged correlation tensors (Hermitian products ⇒ real); the
@@ -288,7 +281,7 @@ def corr_precompute(x, expout, out0, c0, f0, *, scale_by_dm=True,
 
 def _tp_xla_windows(X, K0taps, nx, ny, nyr, B, dD, dd, hx2, hy2, hx4,
                     hy4, s1, wv, nm, midx, shard, gather, model_axis):
-    """Model-sharded XLA window pipeline (the pre-Pallas TP body).
+    """Model-sharded XLA window pipeline (the TP body).
 
     Shards the continuum-error contraction over output channels e, the
     EG products over d×(e-chunk), and the XX products over the D² plane
@@ -298,10 +291,9 @@ def _tp_xla_windows(X, K0taps, nx, ny, nyr, B, dD, dd, hx2, hy2, hx4,
     # contraction, sharded over output channels e (zero-padded rows
     # yield EG ≡ 0, so they contribute nothing downstream)
     K0rows, chunk_e = shard(K0taps)            # [chunk_e, D, ·, ·]
-    K0f_l = dft.kernel_spectrum(K0rows, nx, ny,
-                                precision="high")
+    K0f_l = dft.kernel_spectrum(K0rows, nx, ny)
     X_e, _ = shard(jnp.moveaxis(X, 1, 0))      # [chunk_e, B, nx, nyr]
-    # elementwise d-reduce (native-fp32 VPU; see the unsharded body)
+    # elementwise d-reduce (exact f32; see the unsharded body)
     EGl = (jnp.sum(K0f_l[None] * X[:, None], axis=2) * s1
            - jnp.moveaxis(X_e, 0, 1))          # [B, chunk_e, nx, nyr]
     # 3. eg products: all d × this shard's e-chunk, windows at ±2h
@@ -323,8 +315,8 @@ def _tp_xla_windows(X, K0taps, nx, ny, nyr, B, dD, dd, hx2, hy2, hx4,
            ).astype(jnp.float32)
     oh2 = (flat_c[:, None] % dD == jnp.arange(dD)[None, :]
            ).astype(jnp.float32)
-    A = jnp.einsum("cd,bdxy->bcxy", oh1, Xc)
-    Bv = jnp.einsum("cd,bdxy->bcxy", oh2, X)
+    A = _ein("cd,bdxy->bcxy", oh1, Xc)
+    Bv = _ein("cd,bdxy->bcxy", oh2, X)
     prods_xx_l = (jnp.mean(A * Bv, axis=0)
                   * valid[:, None, None])
     xx_l = _corr_windows(prods_xx_l, nx, ny, hx4, hy4)
@@ -366,7 +358,7 @@ def corr_precompute_fused(x, c0, f0, b0, p0, *, scale_by_dm=True,
     DFTs and the continuum-error contraction over output channels, and
     the correlation products + lag windows over plane pairs.  The only
     resolution-sized collective is one all_gather of the X half-spectra
-    (B·D·nx·nyr complex over ICI); everything gathered afterwards is
+    (B·D·nx·nyr complex); everything gathered afterwards is
     window/scalar-sized.  Per-device FLOPs of the precompute scale as
     1/n_model (tests/test_tp_proof.py counts this from the compiled HLO).
     """
@@ -384,39 +376,25 @@ def corr_precompute_fused(x, c0, f0, b0, p0, *, scale_by_dm=True,
     norm = float(nx * ny)
     nyr = ny // 2 + 1
     dd = dD * dD
-    ein = functools.partial(jnp.einsum, precision="highest")
 
-    K2 = jnp.einsum("emq,mdr->edqr", f0.reshape(dD, dM, P),
-                    c0.reshape(dM, dD, P)).reshape(dd, P * P)
-    K0taps = (K2 @ jnp.asarray(maps["g_scatter_pair"])
+    K2 = _ein("emq,mdr->edqr", f0.reshape(dD, dM, P),
+              c0.reshape(dM, dD, P)).reshape(dd, P * P)
+    K0taps = (_mm(K2, jnp.asarray(maps["g_scatter_pair"]))
               ).reshape(dD, dD, 2 * hx2 + 1, 2 * hy2 + 1)
     # DC bias offset of the true forward vs the continuum: dE0[e] =
     # norm·(s2·Σ_m f̂(0)·b + p)  (the only place out0 differed)
     fs0 = jnp.sum(f0.reshape(dD, dM, P), axis=-1)       # [D, M]
-    dE0 = norm * (s2 * (fs0 @ b0) + p0)                 # [D]
+    dE0 = norm * (s2 * _mm(fs0, b0) + p0)               # [D]
     wv = jnp.asarray(_herm_w(nx, ny))
 
-    if pallas_windows is None:
-        # the fused Pallas window kernel pays off once the [D², nx, nyr]
-        # product planes stop fitting in cache-ish sizes and their HBM
-        # round-trip dominates (measured at 2048²); below that the XLA
-        # path is already dispatch-bound.  The model-sharded x-slab
-        # variant stays opt-in (pallas_windows=True): it is equality-
-        # tested on the virtual mesh but this rig cannot hardware-prove
-        # Mosaic-under-shard_map on real multi-chip ICI.  "pixel" (the
-        # FFT-free formulation, ops/pixel_corr) is opt-in only: correct
-        # everywhere, but its XLA lowering materializes the shift stacks
-        # (measured 184 ms at 2048² vs ~10 spectral in the same window)
-        from ..ops.pallas_kernels import _on_tpu
-        pallas_windows = (model_axis is None and _on_tpu()
-                          and nx * ny >= 2 * 1024 * 1024)
-
-    if pallas_windows in ("pixel", "fft", "fft-bf16") \
-            and model_axis is not None:
+    if pallas_windows == "pixel" and model_axis is not None:
         raise ValueError(
-            f"pallas_windows={pallas_windows!r} has no model-sharded "
-            "variant — use the spectral kernel (True) under tensor "
-            "parallelism")
+            "pallas_windows='pixel' has no model-sharded variant — use the "
+            "spectral route (None) under tensor parallelism")
+    if pallas_windows not in (None, False, "pixel"):
+        raise ValueError(f"pallas_windows={pallas_windows!r}: the "
+                         "precompute routes are None/False (spectral) and "
+                         "'pixel'")
     if pallas_windows == "pixel":
         # FFT-free: every precompute quantity computed directly in pixel
         # space (ops/pixel_corr.py — same anchoring-precision contract,
@@ -426,53 +404,9 @@ def corr_precompute_fused(x, c0, f0, b0, p0, *, scale_by_dm=True,
             x, K0taps, hx2, hy2, s1)
         XX = XXw.reshape(dD, dD, -1)
         EGwin = EGw.reshape(dD, dD, -1)
-    elif pallas_windows in ("fft", "fft-bf16") and model_axis is None:
-        # Pallas radix-4 four-step rfft2 (ops/pallas_fft.py) replacing
-        # XLA's FFT custom-call — the ~75 % cost of the fused burst at
-        # 2048² (ROADMAP "Beating XLA's FFT").  The spectra stay in the
-        # FFT kernels' mixed bin order; anchor_windows(mixed=True)
-        # permutes its per-bin constants instead of the data, so no
-        # gather/transpose pass ever touches the resolution-sized
-        # planes.  "fft" keeps f32 planes and HIGH (bf16_3x) dot
-        # precision (rel ~3e-6 transform; HIGHEST's 6-pass dots triple
-        # the MXU work and measured slower than XLA's FFT at 2048²);
-        # "fft-bf16" streams bf16 planes at DEFAULT dot precision
-        # (rel ~2e-4 transform + 2⁻⁹ storage — the convergence-
-        # validated bf16 scale, and EG's two terms share the same
-        # rounded X so the anchoring contract holds)
-        from ..ops.pallas_fft import rfft2_mixed
-        from ..ops.pallas_windows import anchor_windows
-        fast = pallas_windows == "fft-bf16"
-        # The wrapper-recursion transients scale with the number of
-        # CONCURRENT planes times plane pixels: 3 planes at 8192² OOM
-        # HBM (22.8 vs 15.75 GB) while one plane fits — so the budget is
-        # plane-count-aware, not pixel-only: a batched precompute (B·D
-        # planes) at 4096² has B× the transients of the benched B=1 row.
-        # Serialize once total plane-pixels exceed ~2 8192² planes, in
-        # chunks of at most one-8192²-plane's-worth of pixels (measured
-        # to fit); rfft2_mixed rounds the chunk to a divisor of B·D.
-        planes = B * dD
-        chunk = None
-        if planes * nx * ny > _FFT_SERIALIZE_PIXELS:
-            chunk = max(1, (_FFT_SERIALIZE_PIXELS // 2) // (nx * ny))
-        Xre, Xim = rfft2_mixed(
-            x,
-            precision=(jax.lax.Precision.DEFAULT if fast
-                       else jax.lax.Precision.HIGH),
-            out_dtype=(jnp.bfloat16 if fast else None),
-            lead_chunk=chunk)
-        XXw, EGw, SEG, E_cont0 = anchor_windows(
-            (Xre, Xim), K0taps, nx, ny, hx2, hy2, s1, mixed=True)
-        XX = XXw.reshape(dD, dD, -1)
-        EGwin = EGw.reshape(dD, dD, -1)
-        # DC bin stays at (row 0, lane 0) in mixed order
-        X0 = jnp.mean(Xre[:, :, 0, 0].astype(jnp.float32), axis=0)
     elif model_axis is None:
         if B * dD * nx * ny > _XLA_FFT_SERIALIZE_PIXELS:
-            # serialize the signal transform one plane at a time — the
-            # XLA-FFT analogue of rfft2_mixed(lead_chunk=1): same
-            # flops/bytes, ~planes× lower transient peak, and the big
-            # per-plane FFTs were device-serialized anyway (see
+            # serialize the signal transform one plane at a time (see
             # _XLA_FFT_SERIALIZE_PIXELS; equality pinned by
             # tests/test_fft_corr.py::test_serialized_fft_equality)
             planes = x.reshape(B * dD, nx, ny)
@@ -480,51 +414,30 @@ def corr_precompute_fused(x, c0, f0, b0, p0, *, scale_by_dm=True,
             X = X.reshape(B, dD, nx, ny // 2 + 1)
         else:
             X = spectral.rfft2(x)                      # [B, D, nx, nyr]
-        if pallas_windows:
-            # single-pass Pallas precompute (ops/pallas_windows.py):
-            # anchor spectra generated per x-tile from the tap partials,
-            # EG built in VMEM, windows + Σw|EG|² + DC scalars emitted
-            # in one read of X — bin-wise f32 accumulation, same
-            # anchoring-precision contract as the XLA path.
-            # "bf16": stream the split re/im signal planes bf16 (f32
-            # accumulation in-kernel) — halves the kernel's HBM read;
-            # the objective is that of the 2⁻⁹-rounded signal (see
-            # anchor_windows docstring + tests/test_fft_corr.py)
-            from ..ops.pallas_windows import anchor_windows
-            XXw, EGw, SEG, E_cont0 = anchor_windows(
-                X, K0taps, nx, ny, hx2, hy2, s1,
-                signal_dtype=(jnp.bfloat16 if pallas_windows == "bf16"
-                              else None))
-            XX = XXw.reshape(dD, dD, -1)
-            EGwin = EGw.reshape(dD, dD, -1)
-        else:
-            # "high" (bf16_3x, ~1e-6 rel) — anchor-spectrum rounding is
-            # never measured back, but "highest" compiles pathologically
-            # at 2048² on this toolchain
-            K0f = dft.kernel_spectrum(K0taps, nx, ny,
-                                      precision="high")
-            # continuum error (Y = X): bin-wise small once trained —
-            # anchoring precision identical to the E0/G0 split.  Full
-            # precision is load-bearing (a rounded anchor is a phantom
-            # the burst chases, unlike the unfused path whose forward
-            # rounding lands in the *measured* G₀), so the d-contraction
-            # runs as an elementwise broadcast-multiply-reduce: D=3 is
-            # far below the MXU tile, and the VPU is natively fp32 —
-            # exact without the 6-pass "highest" matmul emulation
-            # (2.8 → ~0.5 ms at 2048²)
-            EG = jnp.sum(K0f[None] * X[:, None], axis=2) * s1 - X
-            Xc = jnp.conj(X)
-            prods_xx = jnp.mean(Xc[:, :, None] * X[:, None],
-                                axis=0).reshape(-1, nx, nyr)
-            prods_eg = jnp.mean(Xc[:, :, None] * EG[:, None],
-                                axis=0).reshape(-1, nx, nyr)
-            XX = _corr_windows(prods_xx, nx, ny, hx4, hy4
-                               ).reshape(dD, dD, -1)
-            EGwin = _corr_windows(prods_eg, nx, ny, hx2, hy2
-                                  ).reshape(dD, dD, -1)
-            SEG = jnp.mean(jnp.sum((EG.real ** 2 + EG.imag ** 2) * wv,
-                                   axis=(-2, -1, -3)))  # Σw|E₀+G₀|²
-            E_cont0 = jnp.mean(EG[:, :, 0, 0].real, axis=0)  # [D]
+        # full f32: a rounded anchor spectrum is a phantom error the
+        # burst chases (it is never measured back)
+        K0f = dft.kernel_spectrum(K0taps, nx, ny)
+        # continuum error (Y = X): bin-wise small once trained —
+        # anchoring precision identical to the E0/G0 split.  Full
+        # precision is load-bearing (a rounded anchor is a phantom
+        # the burst chases, unlike the unfused path whose forward
+        # rounding lands in the *measured* G₀), so the d-contraction
+        # runs as an elementwise broadcast-multiply-reduce: D=3 is a
+        # tiny contraction, and elementwise f32 is exact without any
+        # matmul precision mode
+        EG = jnp.sum(K0f[None] * X[:, None], axis=2) * s1 - X
+        Xc = jnp.conj(X)
+        prods_xx = jnp.mean(Xc[:, :, None] * X[:, None],
+                            axis=0).reshape(-1, nx, nyr)
+        prods_eg = jnp.mean(Xc[:, :, None] * EG[:, None],
+                            axis=0).reshape(-1, nx, nyr)
+        XX = _corr_windows(prods_xx, nx, ny, hx4, hy4
+                           ).reshape(dD, dD, -1)
+        EGwin = _corr_windows(prods_eg, nx, ny, hx2, hy2
+                              ).reshape(dD, dD, -1)
+        SEG = jnp.mean(jnp.sum((EG.real ** 2 + EG.imag ** 2) * wv,
+                               axis=(-2, -1, -3)))  # Σw|E₀+G₀|²
+        E_cont0 = jnp.mean(EG[:, :, 0, 0].real, axis=0)  # [D]
         X0 = jnp.mean(X[:, :, 0, 0].real, axis=0)       # [D]
     else:
         nm = lax.axis_size(model_axis)
@@ -543,42 +456,13 @@ def corr_precompute_fused(x, c0, f0, b0, p0, *, scale_by_dm=True,
                 (-1,) + local.shape[1:])[:n]
 
         # 1. signal FFTs sharded over the B·D pixel planes; ONE
-        # resolution-sized all_gather of the half-spectra over ICI
+        # resolution-sized all_gather of the half-spectra
         pl, _ = shard(x.reshape(B * dD, nx, ny))
         X = gather(spectral.rfft2(pl), B * dD).reshape(B, dD, nx, nyr)
 
-        if pallas_windows:
-            # single-pass Pallas kernel sharded over x-row slabs: every
-            # device holds the gathered X, runs anchor_windows on its
-            # slab (partials are exact — see its docstring), and the
-            # window/scalar accumulators psum over the model axis.
-            # DC scalars are computed directly (K̂₀ at ω=0 is the plain
-            # tap sum) — the kernel's e0 is slab-local and unused here.
-            from ..ops.pallas_windows import anchor_windows
-            chunk_x = -(-nx // nm)
-            Xp = jnp.pad(X, ((0, 0), (0, 0),
-                             (0, chunk_x * nm - nx), (0, 0)))
-            Xl = lax.dynamic_slice_in_dim(Xp, midx * chunk_x, chunk_x,
-                                          axis=2)
-            XXw, EGw, SEGl, _ = anchor_windows(
-                Xl, K0taps, nx, ny, hx2, hy2, s1,
-                row_slab=midx * chunk_x,
-                signal_dtype=(jnp.bfloat16 if pallas_windows == "bf16"
-                              else None))
-            XX = lax.psum(XXw, model_axis).reshape(dD, dD, -1)
-            EGwin = lax.psum(EGw, model_axis).reshape(dD, dD, -1)
-            SEG = lax.psum(SEGl, model_axis)
-            Xdc = X[:, :, 0, 0].real                     # [B, D]
-            X0 = jnp.mean(Xdc, axis=0)
-            ksum = jnp.sum(K0taps, axis=(-2, -1))        # [e, d]
-            # near-total cancellation once trained — same anchoring-
-            # precision invariant as the EG contraction ("highest")
-            E_cont0 = jnp.mean(
-                s1 * ein("ed,bd->be", ksum, Xdc) - Xdc, axis=0)
-        else:
-            XX, EGwin, SEG, X0, E_cont0 = _tp_xla_windows(
-                X, K0taps, nx, ny, nyr, B, dD, dd, hx2, hy2, hx4, hy4,
-                s1, wv, nm, midx, shard, gather, model_axis)
+        XX, EGwin, SEG, X0, E_cont0 = _tp_xla_windows(
+            X, K0taps, nx, ny, nyr, B, dD, dd, hx2, hy2, hx4, hy4,
+            s1, wv, nm, midx, shard, gather, model_axis)
 
     # reconstruct the E₀/G₀ split exactly: G₀ = −dE0 at DC only, so its
     # lag windows are the constant −X0[d]·dE0[e] (w(DC)=1) and its
@@ -633,7 +517,7 @@ def corr_iterate(T, c, f, b, p, mom=None, *, nx, ny,
     X0, E00, G00 = T["X0"], T["E00"], T["G00"]
     g_scatter = jnp.asarray(maps["g_scatter_pair"])       # [P², n2]
     g_pair = jnp.asarray(maps["g_pair"])                  # [n2, P²]
-    XE0pair = (XE0f.reshape(dd, n2) @ g_pair).reshape(dD, dD, P, P)
+    XE0pair = _mm(XE0f.reshape(dd, n2), g_pair).reshape(dD, dD, P, P)
 
     if mom is None:
         mom = (jnp.zeros_like(c), jnp.zeros_like(f),
@@ -646,30 +530,29 @@ def corr_iterate(T, c, f, b, p, mom=None, *, nx, ny,
 
     # ---- bias-as-tap extended channels -----------------------------
     # The DC bias injections (conv_k adds b·Nx·Ny at the zero bin only,
-    # cu:183-184) are algebraically a convolution against a CONSTANT
-    # input channel (spectrum norm·δ_DC).  Extending the tape with that
-    # channel — c̃ gains a bias column (scale s2/s1 = dM so the composed
-    # DC comes out right) and a frozen constant-maker row (1/s1 at the
-    # center tap), f̃ gains the decoder-bias column — folds the entire
-    # per-iteration DC-correction block (~1.05 of ~3.9 µs/it measured)
-    # into the SAME einsums that produce the tap gradients: the lag
-    # tensors extend with constant rows/columns (the DC exponential is
-    # lag-independent), and gradients/updates for b, p fall out of the
-    # extended entries.  Two embeddings of c̃ are needed because the
-    # reference's gradient_k_io drops the hidden /dM (the "no-/M H
-    # quirk", cu:438-455): the FORWARD embedding (bias column ab·b,
-    # maker row 1/s1) makes the composed K̃ produce the exact bias DC,
-    # while the GRADIENT einsum for gf must weight the bias channel by
-    # plain b (and the maker row by 1) — a static per-entry rescale of
-    # the carry, GM = SC⁻¹ on the bias entries.  With that, the raw
-    # extended gradients equal the reference gradients on EVERY
-    # parameter slot, so the update rule stays exactly the reference's
-    # per-parameter normalized step (backprop_d, cu:605-652):
-    # dw = SC·[(1−α)·lr·g/max(|g|, 10)] + α·mom, where SC is the
-    # entry/parameter scale (ab on the c̃ bias column, 1 on live taps
-    # and the f̃ bias column, 0 on frozen entries) — clipping sees the
-    # reference-scale gradient, the entry moves at entry scale, and
-    # frozen entries never move.
+    # cu:183-184) are algebraically a convolution against a CONSTANT input
+    # channel (spectrum norm·δ_DC).  Extending the tape with that channel
+    # — c̃ gains a bias column (scale s2/s1 = dM so the composed DC comes
+    # out right) and a frozen constant-maker row (1/s1 at the center tap),
+    # f̃ gains the decoder-bias column — folds the entire per-iteration
+    # DC-correction block into the SAME einsums that produce the tap
+    # gradients: the lag tensors extend with constant rows/columns (the DC
+    # exponential is lag-independent), and gradients/updates for b, p fall
+    # out of the extended entries.  Two embeddings of c̃ are needed
+    # because the reference's gradient_k_io drops the hidden /dM (the
+    # "no-/M H quirk", cu:438-455): the FORWARD embedding (bias column
+    # ab·b, maker row 1/s1) makes the composed K̃ produce the exact bias
+    # DC, while the GRADIENT einsum for gf must weight the bias channel by
+    # plain b (and the maker row by 1) — a static per-entry rescale of the
+    # carry, GM = SC⁻¹ on the bias entries.  With that, the raw extended
+    # gradients equal the reference gradients on EVERY parameter slot, so
+    # the update rule stays exactly the reference's per-parameter
+    # normalized step (backprop_d, cu:605-652): dw =
+    # SC·[(1−α)·lr·g/max(|g|, 10)] + α·mom, where SC is the
+    # entry/parameter scale (ab on the c̃ bias column, 1 on live taps and
+    # the f̃ bias column, 0 on frozen entries) — clipping sees the
+    # reference-scale gradient, the entry moves at entry scale, and frozen
+    # entries never move.
     dDe, dMe = dD + 1, dM + 1
     p0 = P // 2                   # the (0,0) tap carries the biases
     ab = s2 / s1                  # bias-column scale: c̃[m,D,p0] = ab·b
@@ -703,7 +586,7 @@ def corr_iterate(T, c, f, b, p, mom=None, *, nx, ny,
 
     # extended static tensors: the constant channel's correlations are
     # lag-independent DC products (w(DC)=1, e^{i·0·v}=1)
-    dE0 = norm * (s2 * (jnp.sum(f, axis=-1) @ b) + p)     # initial biases
+    dE0 = norm * (s2 * _mm(jnp.sum(f, axis=-1), b) + p)     # initial biases
     X0e = jnp.concatenate([X0, jnp.full((1,), norm)])     # [dDe]
     XXe = jnp.concatenate([
         jnp.concatenate(
@@ -712,7 +595,7 @@ def corr_iterate(T, c, f, b, p, mom=None, *, nx, ny,
         jnp.broadcast_to((norm * X0e)[None, :, None], (1, dDe, n4)),
     ], axis=0)                                            # [dDe, dDe, n4]
     if maps["g_xxd"] is not None:
-        XXd = (XXe.reshape(dDe * dDe, n4) @ jnp.asarray(maps["g_xxd"])
+        XXd = (_mm(XXe.reshape(dDe * dDe, n4), jnp.asarray(maps["g_xxd"]))
                ).reshape(dDe, dDe, n2, n2)
     else:
         # large kernels: one gather per burst (loop-invariant) instead of
@@ -734,8 +617,8 @@ def corr_iterate(T, c, f, b, p, mom=None, *, nx, ny,
     def composed_kernel(cc, ff):
         """K̃[e,d̃][L2] = Σ_m̃ Σ_{q+r=u} f̃·c̃ (f̃ ∗ c̃); the (q,r)→u
         scatter-sum is a one-hot matmul."""
-        K2 = jnp.einsum("emq,mdr->edqr", ff, cc).reshape(dde, P * P)
-        return (K2 @ g_scatter).reshape(dD, dDe, n2)
+        K2 = _ein("emq,mdr->edqr", ff, cc).reshape(dde, P * P)
+        return _mm(K2, g_scatter).reshape(dD, dDe, n2)
 
     def inertia_ext(wgt, g, mo, SC):
         # g is reference-scale on every parameter slot; SC converts the
@@ -746,16 +629,16 @@ def corr_iterate(T, c, f, b, p, mom=None, *, nx, ny,
         cc, ff, Dc, Df, rec = carry
         dK = composed_kernel(cc, ff) - K0e
         # R(ΔK̃)[e,d̃][L2] = Σ_{c̃,u} ΔK̃[e,c̃,u]·XX̃[d̃,c̃][L2−u]
-        R = jnp.einsum("ecu,dcLu->edL", dK, XXd)           # [e,d̃,L2²]
+        R = _ein("ecu,dcLu->edL", dK, XXd)           # [e,d̃,L2²]
         Tt = s1 * R + E0t                                  # [e,d̃,L2²]
-        Tg = (Tt.reshape(dde, n2) @ g_pair).reshape(dD, dDe, P, P)
-        gc = jnp.einsum("emq,edpq->mdp", ff, Tg)           # [M̃,D̃,P]
+        Tg = _mm(Tt.reshape(dde, n2), g_pair).reshape(dD, dDe, P, P)
+        gc = _ein("emq,edpq->mdp", ff, Tg)           # [M̃,D̃,P]
         # gf contracts the SAME tensor in [d̃, e] orientation, with the
         # gradient-side embedding of c̃ (bias channel at plain b — the
         # reference's no-/M hidden; maker row at 1 so the p slot comes
         # out at reference scale)
         Tg2 = jnp.transpose(Tg, (1, 0, 2, 3))
-        gf = jnp.einsum("mdr,deqr->emq", GMc * cc, Tg2)    # [D,M̃,P]
+        gf = _ein("mdr,deqr->emq", GMc * cc, Tg2)    # [D,M̃,P]
         # Record ΔK̃ instead of reducing it to the Parseval MSE here: the
         # ⟨ΔK,·⟩ contractions are full-array→scalar reductions, the most
         # expensive ops of the body — recording the tiny tensor and
@@ -778,7 +661,7 @@ def corr_iterate(T, c, f, b, p, mom=None, *, nx, ny,
             gf = w0 * gf - w1 * embed_f(fd.reshape(dD, dM, P), pd)
 
         # the burst applies exactly `iters` updates; the gradient of the
-        # final forward is discarded (matching fft_pallas/fft semantics)
+        # final forward is discarded (matching the ω-space body, train/fft)
         keep = i < iters
         sel = lambda new, old: jnp.where(keep, new, old)
         cc_n, Dc_n = inertia_ext(cc, gc, Dc, SCc)
@@ -794,11 +677,11 @@ def corr_iterate(T, c, f, b, p, mom=None, *, nx, ny,
     rec = jnp.zeros((iters + 1, dde * n2), jnp.float32)
     if vary_axes:
         rec = lax.pcast(rec, tuple(vary_axes), to="varying")
-    gc0 = jnp.einsum("emq,edpq->mdp",
+    gc0 = _ein("emq,edpq->mdp",
                      f, jnp.transpose(XE0pair, (1, 0, 2, 3)))
-    gf0 = jnp.einsum("mdr,deqr->emq", c, XE0pair)
+    gf0 = _ein("mdr,deqr->emq", c, XE0pair)
     gf0 = gf0 + (E00[:, None] * (norm * b)[None])[:, :, None]
-    db0 = norm * (jnp.sum(f, axis=-1).T @ E00)
+    db0 = norm * _mm(jnp.sum(f, axis=-1).T, E00)
     dp0 = norm * E00
     gc0, gf0, db0, dp0 = jax.tree.map(lambda t: t / n_norm,
                                       (gc0, gf0, db0, dp0))
@@ -839,10 +722,10 @@ def corr_iterate(T, c, f, b, p, mom=None, *, nx, ny,
     # ---- Parseval MSE trajectory from the recorded state (batched over
     # all iterations; exactly the in-loop formula, cu:1463-1464) ----
     dKs = rec[1:].reshape(iters, dD, dDe, n2)
-    Rs = jnp.einsum("iecu,dcLu->iedL", dKs, XXd)
+    Rs = _ein("iecu,dcLu->iedL", dKs, XXd)
     mse_raw = (E0E0ext
-               + 2.0 * s1 * jnp.einsum("iecu,ceu->i", dKs, E0full)
-               + s1 * s1 * jnp.einsum("iedu,iedu->i", dKs, Rs))
+               + 2.0 * s1 * _ein("iecu,ceu->i", dKs, E0full)
+               + s1 * s1 * _ein("iedu,iedu->i", dKs, Rs))
     mses = jnp.concatenate([(E0E0 * mse_norm)[None],
                             mse_raw * mse_norm])
     return FFTBurstResult(
@@ -968,3 +851,25 @@ fft_burst_corr = jax.jit(
     burst_corr,
     static_argnames=("iters", "maxdiff", "scale_by_dm", "axis_name",
                      "model_axis", "reanchor_every", "pallas_windows"))
+
+
+def auto_burst(x, expout, out0, c, f, b, p, mom=None, *, lr=0.2, alpha=0.9,
+               iters=100, maxdiff=False, w0=1.0, w1=10.0, scale_by_dm=True):
+    """One burst through the body :func:`spectralae.core.backend.burst_body`
+    picks for this backend: this module's correlation-space body, or the
+    ω-space jnp body (:func:`spectralae.train.fft.fft_burst`)."""
+    from ..core.backend import burst_body
+    if burst_body() == "corr":
+        # beyond the reference's 100 inner iterations, re-anchor each 100
+        # so the correlation algebra's precision floor follows the error
+        return fft_burst_corr(
+            x, expout, out0, c, f, b, p, mom, lr=lr, alpha=alpha,
+            iters=iters, maxdiff=maxdiff, w0=w0, w1=w1,
+            scale_by_dm=scale_by_dm,
+            reanchor_every=100 if iters > 100 else None)
+    from .fft import fft_burst
+    if expout is None:
+        expout = x  # the ω-space body has no None handling
+    return fft_burst(x, expout, out0, c, f, b, p, mom, lr=lr, alpha=alpha,
+                     iters=iters, maxdiff=maxdiff, w0=w0, w1=w1,
+                     scale_by_dm=scale_by_dm)

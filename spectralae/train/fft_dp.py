@@ -3,11 +3,11 @@
 A *new* capability beyond the reference (whose burst trains on a single
 frozen frame, SURVEY.md §2.9): the analytic frequency-domain gradients are
 averaged over a batch of frozen patches each inner iteration, and the batch
-shards over the mesh's ``data`` axis — gradients cross ICI via ``psum``
-(expressed with ``shard_map`` + ``pmean``; XLA lowers the collective).
+shards over the mesh's ``data`` axis — gradients cross the interconnect via
+``pmean`` under ``shard_map`` (XLA lowers the collective; NCCL on GPUs).
 
 Semantics reduce exactly to the reference burst at B=1 (tested), making
-this the scaling path for BASELINE config 5 (video streams at 512²).
+this the scaling path for batched video streams.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..ops import dft, spectral
+from ..ops.spectral import HIGHEST
 from ..optim.update import burst_inertia
 from .fft import FFTBurstResult
 
@@ -30,12 +31,16 @@ def _gradient_k_io_batch(X, Y, O, Cf, Ff, b, nx, ny, axis_name=None):
     norm = nx * ny
     Norm = norm * 2.0 * dM * dD * nx * ny
     E = O - Y                                               # [B, D, x, y]
-    S = jnp.einsum("bdxy,dmxy->bmxy", E, jnp.conj(Ff))
-    H = jnp.einsum("mdxy,bdxy->bmxy", Cf, X)
+    S = jnp.einsum("bdxy,dmxy->bmxy", E, jnp.conj(Ff),
+                   precision=HIGHEST)
+    H = jnp.einsum("mdxy,bdxy->bmxy", Cf, X,
+                   precision=HIGHEST)
     H = H.at[:, :, 0, 0].add(b.astype(H.dtype) * norm)
     nb = X.shape[0]
-    dc = jnp.einsum("bmxy,bdxy->mdxy", S, jnp.conj(X)) / (Norm * nb)
-    df = jnp.einsum("bdxy,bmxy->dmxy", E, jnp.conj(H)) / (Norm * nb)
+    dc = jnp.einsum("bmxy,bdxy->mdxy", S, jnp.conj(X),
+                   precision=HIGHEST) / (Norm * nb)
+    df = jnp.einsum("bdxy,bmxy->dmxy", E, jnp.conj(H),
+                   precision=HIGHEST) / (Norm * nb)
     db = jnp.mean(S[:, :, 0, 0].real, axis=0) * norm / Norm
     dp = jnp.mean(E[:, :, 0, 0].real, axis=0) * norm / Norm
     if axis_name is not None:
@@ -101,19 +106,31 @@ def _burst_dp_body(x, expout, out0, c, f, b, p, mom, *, lr, alpha, iters,
                           mses=out[-1])
 
 
+_BODIES = ("corr", "omega")
+
+
+def _check_body(body, reanchor_every):
+    if body is not None and body not in _BODIES:
+        raise ValueError(f"body={body!r}: choose one of {_BODIES} or None "
+                         "(the backend's choice)")
+    if body == "omega" and reanchor_every is not None:
+        # the ω-space body recomputes the forward every iteration and has
+        # no anchored decomposition to reset
+        raise ValueError("reanchor_every requires the correlation-space "
+                         "body (body='omega' cannot reanchor)")
+
+
 @functools.partial(jax.jit, static_argnames=("iters", "scale_by_dm",
-                                             "use_pallas", "maxdiff",
-                                             "reanchor_every",
-                                             "pallas_windows"))
+                                             "body", "maxdiff",
+                                             "reanchor_every"))
 def fft_burst_dp(x: jax.Array, expout: jax.Array, out0: jax.Array,
                  c: jax.Array, f: jax.Array, b: jax.Array, p: jax.Array,
                  mom: tuple | None = None, *, lr: float = 0.2,
                  alpha: float = 0.9, iters: int = 100,
                  scale_by_dm: bool = True,
-                 use_pallas: bool | None = None,
+                 body: str | None = None,
                  maxdiff: bool = False, w0: float = 1.0, w1: float = 10.0,
-                 reanchor_every: int | None = None,
-                 pallas_windows=None) -> FFTBurstResult:
+                 reanchor_every: int | None = None) -> FFTBurstResult:
     """Single-device batched burst: ``x/expout/out0`` are ``[B, D, h, w]``.
 
     ``expout=None`` trains against the input itself (lets XLA CSE the
@@ -121,47 +138,26 @@ def fft_burst_dp(x: jax.Array, expout: jax.Array, out0: jax.Array,
     enables the multiobjective kernel-diversity combination;
     ``reanchor_every`` resets the cancellation floor on long bursts.
 
-    ``use_pallas`` (historical name): ``True``/auto-on-TPU selects the
-    TPU-optimized **correlation-space** body; ``False`` the jnp ω-space
-    body (cross-validation).  The per-iteration Pallas ω-space bodies are
-    only selectable via :func:`distributed_burst` or
-    :mod:`spectralae.train.fft_pallas` directly.
-
-    ``pallas_windows``: precompute routing on the fused-anchor path
-    (``out0=None``) — ``"bf16"`` streams the signal spectra bf16 through
-    the Pallas anchor (the CLI's ``--bf16`` in burst mode)."""
-    if pallas_windows is not None and out0 is not None:
-        raise ValueError("pallas_windows only exists on the fused-anchor "
-                         "precompute (out0=None)")
-    if use_pallas is False and reanchor_every is not None:
-        # same invalid combination distributed_burst rejects: the ω-space
-        # body has no anchored decomposition to reset
-        raise ValueError("reanchor_every requires the correlation-space "
-                         "body (use_pallas=False selects the ω-space "
-                         "cross-validation body, which cannot reanchor)")
-    if use_pallas is None:
-        from ..ops.pallas_kernels import _on_tpu
-        use_pallas = _on_tpu()
-    corr = (use_pallas or reanchor_every is not None
-            or pallas_windows is not None)
-    if expout is None and not corr:
-        expout = x  # the ω-space fallback has no None handling
+    ``body``: ``"corr"`` (the correlation-space body, train/fft_corr),
+    ``"omega"`` (the jnp ω-space body, kept for cross-validation), or
+    ``None`` — :func:`spectralae.core.backend.burst_body` decides, except
+    that ``reanchor_every`` needs the corr body and so selects it."""
+    _check_body(body, reanchor_every)
+    if body is None:
+        from ..core.backend import burst_body
+        body = "corr" if reanchor_every is not None else burst_body()
     if mom is None:
         mom = (jnp.zeros_like(c), jnp.zeros_like(f),
                jnp.zeros_like(b), jnp.zeros_like(p))
-    if corr:
-        # re-anchoring and the pallas_windows routing only exist on the
-        # correlation-space path — the ω-space body recomputes the forward
-        # every iteration and has no anchored decomposition to reset — so
-        # an explicit reanchor_every/pallas_windows forces the corr path
-        # on any platform
+    if body == "corr":
         from .fft_corr import burst_corr
         return burst_corr(x, expout, out0, c, f, b, p, mom,
                           lr=lr, alpha=alpha, iters=iters,
                           maxdiff=maxdiff, w0=w0, w1=w1,
                           scale_by_dm=scale_by_dm,
-                          reanchor_every=reanchor_every,
-                          pallas_windows=pallas_windows)
+                          reanchor_every=reanchor_every)
+    if expout is None:
+        expout = x  # the ω-space body has no None handling
     return _burst_dp_body(x, expout, out0, c, f, b, p, mom, lr=lr,
                           alpha=alpha, iters=iters, scale_by_dm=scale_by_dm,
                           axis_name=None, maxdiff=maxdiff, w0=w0, w1=w1)
@@ -169,12 +165,11 @@ def fft_burst_dp(x: jax.Array, expout: jax.Array, out0: jax.Array,
 
 def distributed_burst(mesh: Mesh, *, lr: float = 0.2, alpha: float = 0.9,
                       iters: int = 100, scale_by_dm: bool = True,
-                      use_pallas: bool | None = None,
+                      body: str = "corr",
                       maxdiff: bool = False, w0: float = 1.0,
                       w1: float = 10.0,
                       reanchor_every: int | None = None,
-                      fused: bool = False,
-                      pallas_windows: bool | None = None):
+                      fused: bool = False):
     """Build a jitted multi-chip burst: batch sharded over 'data', params
     replicated.
 
@@ -182,8 +177,8 @@ def distributed_burst(mesh: Mesh, *, lr: float = 0.2, alpha: float = 0.9,
     pmean of the lag tensors over 'data' replaces the per-iteration
     gradient collectives, and a >1-sized 'model' axis tensor-shards the
     resolution-dependent precompute — iterations run replicated and
-    collective-free.  ``use_pallas`` selects the per-iteration ω-space
-    bodies (True: fused Pallas; False: jnp einsum) for cross-validation.
+    collective-free.  ``body="omega"`` selects the per-iteration ω-space
+    jnp body (gradients pmean'd every iteration) for cross-validation.
 
     ``fused=True``: the fused-anchor contract (train against the input,
     anchor = the model's own forward, computed inside the precompute) —
@@ -192,17 +187,10 @@ def distributed_burst(mesh: Mesh, *, lr: float = 0.2, alpha: float = 0.9,
     resolution-scaled precompute (FFTs, kernel DFTs, products, windows),
     so per-device FLOPs drop ~1/n_model (tests/test_tp_proof.py).
     """
-    if reanchor_every is not None and use_pallas is not None:
-        # re-anchoring only exists on the corr body (use_pallas=None);
-        # the ω-space cross-validation bodies would silently ignore it
-        raise ValueError("reanchor_every requires the default "
-                         "(correlation-space) body — drop use_pallas")
-    if fused and use_pallas is not None:
-        raise ValueError("fused anchoring only exists on the default "
-                         "(correlation-space) body — drop use_pallas")
-    if pallas_windows is not None and not fused:
-        raise ValueError("pallas_windows selects the fused-anchor "
-                         "precompute kernel — requires fused=True")
+    _check_body(body, reanchor_every)
+    if fused and body != "corr":
+        raise ValueError("fused anchoring only exists on the "
+                         "correlation-space body (body='corr')")
     from jax import shard_map
 
     batch_spec = P("data", None, None, None)
@@ -219,8 +207,7 @@ def distributed_burst(mesh: Mesh, *, lr: float = 0.2, alpha: float = 0.9,
                               iters=iters, scale_by_dm=scale_by_dm,
                               maxdiff=maxdiff, w0=w0, w1=w1,
                               axis_name="data", model_axis=model_axis,
-                              reanchor_every=reanchor_every,
-                              pallas_windows=pallas_windows)
+                              reanchor_every=reanchor_every)
 
         sharded = shard_map(
             local_fused, mesh=mesh,
@@ -239,7 +226,7 @@ def distributed_burst(mesh: Mesh, *, lr: float = 0.2, alpha: float = 0.9,
         return run_fused
 
     def local(x, expout, out0, c, f, b, p, Dc, Df, Db, Dp):
-        if use_pallas is None:
+        if body == "corr":
             from .fft_corr import burst_corr
             return burst_corr(x, expout, out0, c, f, b, p,
                               (Dc, Df, Db, Dp), lr=lr, alpha=alpha,
@@ -248,12 +235,6 @@ def distributed_burst(mesh: Mesh, *, lr: float = 0.2, alpha: float = 0.9,
                               axis_name="data",
                               model_axis=model_axis,
                               reanchor_every=reanchor_every)
-        if use_pallas:
-            from .fft_pallas import burst_pallas_fused
-            return burst_pallas_fused(x, expout, out0, c, f, b, p,
-                                      (Dc, Df, Db, Dp), lr=lr, alpha=alpha,
-                                      iters=iters, scale_by_dm=scale_by_dm,
-                                      axis_name="data")
         return _burst_dp_body(x, expout, out0, c, f, b, p,
                               (Dc, Df, Db, Dp), lr=lr, alpha=alpha,
                               iters=iters, scale_by_dm=scale_by_dm,
@@ -265,7 +246,7 @@ def distributed_burst(mesh: Mesh, *, lr: float = 0.2, alpha: float = 0.9,
                   rep, rep, rep, rep, rep, rep, rep, rep),
         out_specs=FFTBurstResult(c=rep, f=rep, b=rep, p=rep,
                                  mom=(rep, rep, rep, rep), mses=rep),
-        check_vma=False)  # pallas_call outputs carry no vma info
+        check_vma=False)
 
     @jax.jit
     def run(x, expout, out0, c, f, b, p, mom=None):

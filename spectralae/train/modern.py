@@ -4,7 +4,7 @@ The reference trains one stage pair at a time on a single frame.  This path
 generalizes to: batched frames, all stages trained jointly (or a selected
 pair via ``train_pair``), gradients by autodiff through the full forward in
 either domain, and the reference's normalized-gradient inertia optimizer.
-It is the unit the distribution layer shards over the TPU mesh
+It is the unit the distribution layer shards over the device mesh
 (:mod:`spectralae.dist.mesh`).
 """
 
@@ -33,7 +33,7 @@ def reconstruction_loss(params: AEParams, x: jax.Array, scales, *,
                         compute_dtype=None, remat: bool = False) -> jax.Array:
     """½·mean squared reconstruction error over the batch.
 
-    ``compute_dtype=jnp.bfloat16`` runs the forward in bf16 (MXU-native)
+    ``compute_dtype=jnp.bfloat16`` runs the forward in bf16
     with fp32 params/loss — the production mixed-precision path.  In the
     fft domain the FFTs stay f32 (XLA requirement) and the pointwise convs
     stream bf16 operands with f32 accumulation.  ``act`` applies only in

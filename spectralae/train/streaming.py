@@ -56,8 +56,7 @@ def stream_bursts(xs: jax.Array, c: jax.Array, f: jax.Array, b: jax.Array,
                   maxdiff: bool = False, w0: float = 1.0, w1: float = 10.0,
                   scale_by_dm: bool = True, carry_momentum: bool = True,
                   reanchor_every: int | None = None,
-                  axis_name: str | None = None,
-                  pallas_windows=None) -> StreamResult:
+                  axis_name: str | None = None) -> StreamResult:
     """Train through a stream of frames, one burst per frame, in one jit.
 
     Args:
@@ -68,9 +67,6 @@ def stream_bursts(xs: jax.Array, c: jax.Array, f: jax.Array, b: jax.Array,
         autoencoder.cpp:279-310); ``False`` re-zeroes per frame.
       axis_name: inside shard_map, pmeans each step's correlation tensors
         over the data axis (DP streaming).
-      pallas_windows: precompute routing for the per-frame fused burst
-        (``burst_corr``) — ``"bf16"`` streams the signal spectra bf16
-        through the Pallas anchor (CLI ``--bf16``).
 
     Returns the final weights/momentum and the ``[K, iters+1]`` MSE
     trajectories (frame k's row is the reference's per-iteration
@@ -92,8 +88,7 @@ def stream_bursts(xs: jax.Array, c: jax.Array, f: jax.Array, b: jax.Array,
                        lr=lr, alpha=alpha, iters=iters, maxdiff=maxdiff,
                        w0=w0, w1=w1, scale_by_dm=scale_by_dm,
                        axis_name=axis_name,
-                       reanchor_every=reanchor_every,
-                       pallas_windows=pallas_windows)
+                       reanchor_every=reanchor_every)
         return (r.c, r.f, r.b, r.p, r.mom), r.mses
 
     (c, f, b, p, mom), mses = lax.scan(one, (c, f, b, p, mom), xs)
@@ -103,7 +98,7 @@ def stream_bursts(xs: jax.Array, c: jax.Array, f: jax.Array, b: jax.Array,
 fft_stream = jax.jit(
     stream_bursts,
     static_argnames=("iters", "maxdiff", "scale_by_dm", "carry_momentum",
-                     "reanchor_every", "axis_name", "pallas_windows"))
+                     "reanchor_every", "axis_name"))
 
 
 def _pair_input(params, xk, scales, n_l: int, scale_by_dm: bool = True):
@@ -134,8 +129,7 @@ def stream_bursts_pair(xs: jax.Array, params, scales, n_l: int, *,
                        scale_by_dm: bool = True,
                        carry_momentum: bool = True,
                        reanchor_every: int | None = None,
-                       axis_name: str | None = None,
-                       pallas_windows=None) -> StreamResult:
+                       axis_name: str | None = None) -> StreamResult:
     """:func:`stream_bursts` for an *inner* stage pair of a deeper net.
 
     Each scan step first computes the pair's pooled input activation from
@@ -161,8 +155,7 @@ def stream_bursts_pair(xs: jax.Array, params, scales, n_l: int, *,
                        lr=lr, alpha=alpha, iters=iters, maxdiff=maxdiff,
                        w0=w0, w1=w1, scale_by_dm=scale_by_dm,
                        axis_name=axis_name,
-                       reanchor_every=reanchor_every,
-                       pallas_windows=pallas_windows)
+                       reanchor_every=reanchor_every)
         return (r.c, r.f, r.b, r.p, r.mom), r.mses
 
     (c, f, b, p, mom), mses = lax.scan(one, (c, f, b, p, mom), xs)
@@ -172,8 +165,7 @@ def stream_bursts_pair(xs: jax.Array, params, scales, n_l: int, *,
 fft_stream_pair = jax.jit(
     stream_bursts_pair,
     static_argnames=("scales", "n_l", "iters", "maxdiff", "scale_by_dm",
-                     "carry_momentum", "reanchor_every", "axis_name",
-                     "pallas_windows"))
+                     "carry_momentum", "reanchor_every", "axis_name"))
 
 
 class SweepResult(NamedTuple):
@@ -196,8 +188,7 @@ def stream_bursts_sweep(xs: jax.Array, params, scales, *,
                         scale_by_dm: bool = True,
                         carry_momentum: bool = True,
                         reanchor_every: int | None = None,
-                        axis_name: str | None = None,
-                        pallas_windows=None) -> SweepResult:
+                        axis_name: str | None = None) -> SweepResult:
     """Per-frame all-pairs sweep: each scan step trains EVERY stage pair.
 
     The reference user's full-net training session is the 'z'/'x' + '1'
@@ -236,8 +227,7 @@ def stream_bursts_sweep(xs: jax.Array, params, scales, *,
                            mo_in, lr=lr, alpha=alpha, iters=iters,
                            maxdiff=maxdiff, w0=w0, w1=w1,
                            scale_by_dm=scale_by_dm, axis_name=axis_name,
-                           reanchor_every=reanchor_every,
-                           pallas_windows=pallas_windows)
+                           reanchor_every=reanchor_every)
             prm = prm.replace_pair(n_l, ConvStage(c=r.c, b=r.b),
                                    ConvStage(c=r.f, b=r.p))
             mo[n_l] = r.mom
@@ -251,8 +241,7 @@ def stream_bursts_sweep(xs: jax.Array, params, scales, *,
 fft_stream_sweep = jax.jit(
     stream_bursts_sweep,
     static_argnames=("scales", "iters", "maxdiff", "scale_by_dm",
-                     "carry_momentum", "reanchor_every", "axis_name",
-                     "pallas_windows"))
+                     "carry_momentum", "reanchor_every", "axis_name"))
 
 
 class CoordStreamResult(NamedTuple):

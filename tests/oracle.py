@@ -1,7 +1,7 @@
 """Pure-numpy oracle encoding the reference's exact semantics.
 
 Each function is a direct (slow, loop-based) transcription of the cited
-reference code, used only to validate the JAX/XLA/Pallas implementations.
+reference code, used only to validate the JAX/XLA implementations.
 Two deliberate deviations from the reference, documented per SURVEY.md §7
 ("reference quirks vs correctness"):
 
@@ -347,3 +347,74 @@ def gradient_diff_ref(c, f, b, p):
             bd[m] = sum_b
             pd[d] = sum_p
     return cd, fd, bd, pd
+
+
+# ------------------------------------------------------- whole-net forwards
+
+def conv_ref_vec(x, c, b, mode="ref_gpu", scale_by_dm=True):
+    """:func:`conv_ref` vectorized over pixels (one shifted-plane product
+    per tap) — the same sums, fast enough for full-size frames; pinned
+    equal to the loop form in tests/test_chip_smoke.py."""
+    D, Nx, Ny = x.shape
+    M, _, Nk, Nl = c.shape
+    ik0 = tap_anchor(Nk, mode)
+    il0 = tap_anchor(Nl, mode)
+    lo = 1 if mode == "ref_cpu" else 0
+    xin = x / M if scale_by_dm else x
+    out = np.zeros((M, Nx, Ny), np.result_type(x, c)) + b[:, None, None]
+    for k in range(Nk):
+        ik = ik0 + k
+        i0, i1 = max(0, lo + ik), min(Nx, Nx + ik)
+        for l in range(Nl):
+            il = il0 + l
+            j0, j1 = max(0, lo + il), min(Ny, Ny + il)
+            if i0 >= i1 or j0 >= j1:
+                continue
+            shifted = np.zeros_like(xin)
+            shifted[:, i0:i1, j0:j1] = xin[:, i0 - ik:i1 - ik, j0 - il:j1 - il]
+            out += np.einsum("md,dij->mij", c[:, :, k, l], shifted)
+    return out
+
+
+def forward_coord_ref(stages, x, scales, mode="centered"):
+    """Coordinate-space forward of one frame (autoencoder.cpp:135-150):
+    encoder pool → conv, decoder conv → unpool.  ``stages``: list of
+    (c, b) numpy pairs in tape order; returns the reconstruction."""
+    n = len(stages)
+    h = x
+    for i, ((c, b), sc) in enumerate(zip(stages, scales)):
+        if i < n // 2:
+            h = pool_ref(h, sc) if sc not in (-1, 0, 1) else h
+            h = conv_ref_vec(h, c, b, mode)
+        else:
+            h = conv_ref_vec(h, c, b, mode)
+            h = pool_ref(h, sc) if sc not in (-1, 0, 1) else h
+    return h
+
+
+def _pool_fft_ref(X, nx, ny, scale):
+    """pool_fft (fft_backproplib.cu:975-1002) through resize_ref."""
+    if scale in (-1, 0, 1):
+        return X, nx, ny
+    nxs, nys = ((nx // scale, ny // scale) if scale > 0
+                else (nx * -scale, ny * -scale))
+    return resize_ref(X, nx, ny, nxs, nys), nxs, nys
+
+
+def forward_fft_ref(stages, x, scales):
+    """Momentum-space forward of one frame (autoenc_fft,
+    fft_backproplib.cu:1331-1376): one rfft2, per-stage spectral pool and
+    pointwise complex conv against the padded kernels' spectra, one
+    normalized irfft2."""
+    D, nx, ny = x.shape
+    X = np.fft.rfft2(x)
+    n = len(stages)
+    cx, cy = nx, ny
+    for i, ((c, b), sc) in enumerate(zip(stages, scales)):
+        if i < n // 2:
+            X, cx, cy = _pool_fft_ref(X, cx, cy, sc)
+        C = np.fft.rfft2(kernel_pad_ref(c, cx, cy))
+        X = conv_k_ref(X, C, b, cx, cy)
+        if i >= n // 2:
+            X, cx, cy = _pool_fft_ref(X, cx, cy, sc)
+    return np.fft.irfft2(X, s=(cx, cy))

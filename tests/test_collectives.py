@@ -62,12 +62,12 @@ def _expected_payload_elems(d=3, nk=5):
 def test_dp_burst_collectives_are_window_sized():
     """Pure-DP burst: every collective operand is lag-window-sized
     (≤ the T-dict payload, resolution-INDEPENDENT) — no spectra, planes,
-    or per-iteration gradients ever cross ICI."""
+    or per-iteration gradients ever cross the interconnect."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
     args = _setup(n=256, b=8)
     colls = _collectives(make_mesh(8, 1), args)
-    assert colls, "the DP burst must reduce its lag tensors over ICI"
+    assert colls, "the DP burst must reduce its lag tensors over the mesh"
     budget = _expected_payload_elems()           # 2,964 elems at D=3/5×5
     for op, elems in colls:
         assert op == "all-reduce", colls

@@ -103,12 +103,12 @@ def test_export_fixed_batch_rejects_other_batch(tmp_path):
 
 
 def test_export_multiplatform_lowering(tmp_path):
-    """Cross-platform artifact: lowered for both cpu and tpu on a CPU host."""
+    """Cross-platform artifact: lowered for both cpu and cuda on a CPU host."""
     _, spec, params = _small_net()
     path = export_model(params, spec, tmp_path / "art", batch=1,
-                        platforms=("cpu", "tpu"))
+                        platforms=("cpu", "cuda"))
     manifest = json.loads((path / "manifest.json").read_text())
-    assert set(p.lower() for p in manifest["platforms"]) == {"cpu", "tpu"}
+    assert set(p.lower() for p in manifest["platforms"]) == {"cpu", "cuda"}
     m = ServingModel.load(path)
     x = jnp.ones((1, 3, 32, 32), jnp.float32)
     got = m(x)

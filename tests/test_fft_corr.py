@@ -24,13 +24,14 @@ from spectralae.train.fft_dp import fft_burst_dp, distributed_burst
 from spectralae.train.fft_corr import fft_burst_corr, burst_corr
 
 
-def setup(nx=16, d=2, m=4, lk=1, ll=None, seed=0, b=None):
+def setup(nx=16, d=2, m=4, lk=1, ll=None, seed=0, b=None, ny=None):
     ll = lk if ll is None else ll
-    cfg = Config(nx=nx, ny=nx, d=d,
+    ny = nx if ny is None else ny
+    cfg = Config(nx=nx, ny=ny, d=d,
                  layer=LayerParams(depth=m, lk=lk, ll=ll, scale=1, rmax=0.5))
     spec = initial_spec(cfg)
     params = init_params(jax.random.key(seed), spec, 0.5)
-    shape = (d, nx, nx) if b is None else (b, d, nx, nx)
+    shape = (d, nx, ny) if b is None else (b, d, nx, ny)
     x = jnp.asarray(np.random.default_rng(seed).normal(
         size=shape).astype(np.float32)) * 50
     out0 = model.forward_fft(params, x if b else x[None], spec.scales)
@@ -99,7 +100,7 @@ def test_corr_burst_batched_matches_dp():
     got = fft_burst_corr(xb, xb, ob, enc.c, dec.c, enc.b, dec.b,
                          lr=0.2, iters=5)
     ref = fft_burst_dp(xb, xb, ob, enc.c, dec.c, enc.b, dec.b,
-                       lr=0.2, iters=5, use_pallas=False)
+                       lr=0.2, iters=5, body="omega")
     assert_matches(got, ref)
 
 
@@ -143,7 +144,7 @@ def test_corr_burst_dp_tp_shard_map():
               dist.shard_batch(np.asarray(out8), m),
               enc.c, dec.c, enc.b, dec.b)
     want = fft_burst_dp(xs, xs, out8, enc.c, dec.c, enc.b, dec.b,
-                        lr=0.2, iters=5, use_pallas=False)
+                        lr=0.2, iters=5, body="omega")
     assert_matches(got, want)
 
 
@@ -157,7 +158,7 @@ def test_distributed_burst_default_is_corr_and_matches():
               dist.shard_batch(np.asarray(out8), m),
               enc.c, dec.c, enc.b, dec.b)
     want = fft_burst_dp(xs, xs, out8, enc.c, dec.c, enc.b, dec.b,
-                        lr=0.2, iters=10, use_pallas=False)
+                        lr=0.2, iters=10, body="omega")
     assert_matches(got, want)
 
 
@@ -171,7 +172,7 @@ def test_distributed_burst_dp_tp_mesh():
               dist.shard_batch(np.asarray(out8), m),
               enc.c, dec.c, enc.b, dec.b)
     want = fft_burst_dp(xs, xs, out8, enc.c, dec.c, enc.b, dec.b,
-                        lr=0.2, iters=4, use_pallas=False)
+                        lr=0.2, iters=4, body="omega")
     assert_matches(got, want)
 
 
@@ -261,15 +262,23 @@ def test_corr_burst_expout_none_equals_explicit():
     np.testing.assert_array_equal(np.asarray(a.mses), np.asarray(b.mses))
 
 
-def test_fused_precompute_matches_unfused():
+@pytest.mark.parametrize("nx,ny,d,m,lk,ll,b", [
+    (16, 16, 2, 4, 1, 1, None),   # base case
+    (16, 16, 2, 4, 1, 1, 3),      # batched (B>1)
+    (16, 16, 3, 5, 1, 1, None),   # D≠M channel counts, D=3
+    (16, 24, 2, 4, 1, 1, None),   # non-square grid
+    (16, 15, 2, 3, 1, 1, 2),      # odd ny (no self-conjugate column)
+    (20, 20, 2, 3, 1, 2, None),   # hx≠hy (5×7 kernels)
+])
+def test_fused_precompute_matches_unfused(nx, ny, d, m, lk, ll, b):
     """out0=None fuses the anchor forward into the precompute: the T dict
     must equal corr_precompute fed the explicit biased two-stage forward
     (G₀ collapses to the DC bias scalars)."""
     from spectralae.train.fft_corr import (corr_precompute,
                                            corr_precompute_fused,
                                            _true_forward)
-    x, _, enc, dec = setup(nx=16, d=2, m=4)
-    xb = x[None]
+    x, _, enc, dec = setup(nx=nx, ny=ny, d=d, m=m, lk=lk, ll=ll, b=b)
+    xb = x if b else x[None]
     out0 = _true_forward(xb, enc.c, dec.c, enc.b, dec.b, True)
     Tu = corr_precompute(xb, xb, out0, enc.c, dec.c)
     Tf = corr_precompute_fused(xb, enc.c, dec.c, enc.b, dec.b)
@@ -359,81 +368,6 @@ def test_pixel_burst_matches_spectral(batch, maxdiff, reanchor):
     assert_matches(got, ref, rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("nx,lk,ll,d,m,b", [
-    (16, 1, 1, 2, 4, None),     # lag window wider than the grid
-    (32, 1, 1, 3, 4, 2),        # batched
-    (32, 1, 2, 2, 3, None),     # non-square 5×7 kernel
-])
-def test_fft_mode_precompute_matches_spectral(nx, lk, ll, d, m, b):
-    """pallas_windows='fft' (radix-4 four-step Pallas rfft2 feeding the
-    anchor kernel in mixed bin order with host-permuted constants,
-    ops/pallas_fft.py) produces the same T dict as the XLA spectral
-    route."""
-    from spectralae.train.fft_corr import corr_precompute_fused
-    x, _, enc, dec = setup(nx=nx, d=d, m=m, lk=lk, ll=ll, b=b)
-    xb = x if b else x[None]
-    Ts = corr_precompute_fused(xb, enc.c, dec.c, enc.b, dec.b,
-                               pallas_windows=False)
-    Tf = corr_precompute_fused(xb, enc.c, dec.c, enc.b, dec.b,
-                               pallas_windows="fft")
-    assert set(Ts) == set(Tf)
-    lag_scale = max(float(np.max(np.abs(np.asarray(Ts[k]))))
-                    for k in ("XX", "XE0", "XG0"))
-    for k in Ts:
-        want = np.asarray(Ts[k])
-        atol = (1e-5 * lag_scale if k in ("XX", "XE0", "XG0")
-                else 1e-5 * float(np.max(np.abs(want))) + 1e-6)
-        np.testing.assert_allclose(np.asarray(Tf[k]), want,
-                                   rtol=2e-3, atol=atol, err_msg=k)
-
-
-@pytest.mark.parametrize("batch,reanchor", [(None, None), (2, 4)])
-def test_fft_mode_burst_matches_spectral(batch, reanchor):
-    """Full fused bursts through the Pallas-FFT precompute equal the
-    spectral ones (weights, momentum, MSE trajectory)."""
-    x, _, enc, dec = setup(b=batch)
-    kw = dict(lr=0.2, iters=9, reanchor_every=reanchor)
-    ref = fft_burst_corr(x, None, None, enc.c, dec.c, enc.b, dec.b,
-                         pallas_windows=False, **kw)
-    got = fft_burst_corr(x, None, None, enc.c, dec.c, enc.b, dec.b,
-                         pallas_windows="fft", **kw)
-    assert_matches(got, ref, rtol=2e-4, atol=2e-4)
-
-
-def test_fft_bf16_mode_burst_converges_at_pixel_scale():
-    """'fft-bf16' (DEFAULT-precision transform + bf16 plane storage)
-    follows the f32 trajectory at the validated bf16-streaming scale and
-    descends monotonically on pixel-scale frames."""
-    x, _, enc, dec = setup(nx=32, d=3, m=4)
-    kw = dict(lr=0.2, iters=12)
-    ref = fft_burst_corr(x, None, None, enc.c, dec.c, enc.b, dec.b,
-                         pallas_windows=False, **kw)
-    got = fft_burst_corr(x, None, None, enc.c, dec.c, enc.b, dec.b,
-                         pallas_windows="fft-bf16", **kw)
-    m_ref = np.asarray(ref.mses)
-    m_got = np.asarray(got.mses)
-    assert m_got[-1] < 0.5 * m_got[0]
-    np.testing.assert_allclose(m_got, m_ref, rtol=3e-2)
-    np.testing.assert_allclose(np.asarray(got.c), np.asarray(ref.c),
-                               rtol=0, atol=5e-3 * float(
-                                   np.abs(np.asarray(ref.c)).max()))
-
-
-def test_fft_mode_rejects_model_axis():
-    from spectralae.train.fft_corr import corr_precompute_fused
-    x, _, enc, dec = setup()
-    devs = jax.devices()[:2]
-    m = jax.sharding.Mesh(np.array(devs), ("model",))
-
-    def run(xb):
-        return corr_precompute_fused(xb, enc.c, dec.c, enc.b, dec.b,
-                                     model_axis="model",
-                                     pallas_windows="fft")
-    with pytest.raises(ValueError, match="fft"):
-        shard_map(run, mesh=m, in_specs=(P(),), out_specs=P(),
-                  check_vma=False)(x[None])
-
-
 def test_pixel_precompute_rejects_model_axis():
     from spectralae.train.fft_corr import corr_precompute_fused
     x, _, enc, dec = setup()
@@ -487,43 +421,11 @@ def test_corr_burst_non_square_grid():
     assert_matches(got, ref)
 
 
-def test_corr_burst_bf16_pixel_scale():
-    """bf16 signal streaming through the Pallas anchor at pixel scale
-    (values ~1e3 — the cancellation-killer pattern): the burst must stay
-    positive-MSE, converge like the f32 path, and track it early.  The
-    rounding perturbs the objective by ~2⁻⁹ relative, so the achievable
-    MSE floor is ~(2⁻⁹)²·E_signal ≈ 4e-6 of the start — far below the
-    reference burst's 20–350× reductions."""
-    cfg = Config(nx=32, ny=32, d=3,
-                 layer=LayerParams(depth=10, lk=1, ll=1, scale=1, rmax=1.0))
-    spec = initial_spec(cfg)
-    params = init_params(jax.random.key(0), spec, 1.0)
-    rng = np.random.default_rng(0)
-    x = jnp.asarray((rng.random((3, 32, 32)) * 1000).astype(np.float32))
-    enc, dec = params.pair(0)
-    got = fft_burst_corr(x, None, None, enc.c, dec.c, enc.b, dec.b,
-                         lr=0.2, iters=100, pallas_windows="bf16")
-    ref = fft_burst_corr(x, None, None, enc.c, dec.c, enc.b, dec.b,
-                         lr=0.2, iters=100, pallas_windows=True)
-    m_got, m_ref = np.asarray(got.mses), np.asarray(ref.mses)
-    assert np.all(m_got > 0), "MSE went negative (cancellation regression)"
-    assert m_got[-1] < m_got[0] * 0.05
-    # early trajectory within the bf16 objective-perturbation band (the
-    # normalized/clipped update decorrelates long trajectories even
-    # between exact implementations, so late weights are not comparable —
-    # same contract as test_corr_burst_reanchoring_extends_convergence)
-    np.testing.assert_allclose(m_got[:20], m_ref[:20], rtol=5e-2)
-    # and the same convergence level at the end
-    assert m_got[-1] < 2.0 * m_ref[-1]
-
-
 def test_serialized_fft_equality(monkeypatch):
     """At >_XLA_FFT_SERIALIZE_PIXELS total plane-pixels the fused precompute
-    serializes the signal rfft2 one plane at a time (lax.map — the
-    XLA-FFT analogue of rfft2_mixed's lead_chunk; ~planes× lower
-    transient peak is what fits the 16384² burst on a 16 GB chip).  The
-    serialized transform is the same FFT per plane, so the T dict must
-    be bit-comparable to the batched route."""
+    serializes the signal rfft2 one plane at a time (lax.map; ~planes×
+    lower transient peak).  The serialized transform is the same FFT per
+    plane, so the T dict must match the batched route to 1e-6."""
     from spectralae.train import fft_corr as fc
     x, _, enc, dec = setup(nx=32, d=3, b=2)
     batched = fc.corr_precompute_fused(x, enc.c, dec.c, enc.b, dec.b,

@@ -99,23 +99,6 @@ def test_distributed_burst_matches_single_device():
                                rtol=1e-4, atol=1e-5)
 
 
-def test_distributed_burst_pallas_body_matches():
-    """The fused-Pallas per-device body under shard_map (interpret mode)
-    agrees with the jnp DP body across 8 devices."""
-    m = dist.make_mesh(n_data=8, n_model=1)
-    xs, out0, enc, dec = setup(b=8, seed=3)
-    xs_s = dist.shard_batch(np.asarray(xs), m)
-    out0_s = dist.shard_batch(np.asarray(out0), m)
-    run_p = distributed_burst(m, lr=0.2, iters=5, use_pallas=True)
-    run_j = distributed_burst(m, lr=0.2, iters=5, use_pallas=False)
-    rp = run_p(xs_s, xs_s, out0_s, enc.c, dec.c, enc.b, dec.b)
-    rj = run_j(xs_s, xs_s, out0_s, enc.c, dec.c, enc.b, dec.b)
-    np.testing.assert_allclose(np.asarray(rp.mses), np.asarray(rj.mses),
-                               rtol=1e-3, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(rp.c), np.asarray(rj.c),
-                               rtol=1e-3, atol=1e-4)
-
-
 # ---------------------------------------------------- coord-domain DP step
 
 def _coord_setup(nx=16, d=2, m=4, b=4, seed=0):
@@ -197,8 +180,8 @@ def test_distributed_coord_step_matches_single_device():
 
 
 def test_dp_burst_maxdiff_b1_matches_reference_burst():
-    """The multiobjective combination in the DP body (and the corr path it
-    dispatches to on TPU) equals the single-frame reference burst."""
+    """The multiobjective combination in the DP body (and the corr body
+    it dispatches to on the GPU) equals the single-frame reference burst."""
     xs, out0, enc, dec = setup(b=1)
     ref = fft_burst(xs[0], xs[0], out0[0], enc.c, dec.c, enc.b, dec.b,
                     lr=0.2, iters=5, impl="dft", maxdiff=True)
@@ -207,7 +190,7 @@ def test_dp_burst_maxdiff_b1_matches_reference_burst():
     np.testing.assert_allclose(np.asarray(got.c), np.asarray(ref.c),
                                rtol=1e-4, atol=1e-5)
     corr = fft_burst_dp(xs, xs, out0, enc.c, dec.c, enc.b, dec.b,
-                        lr=0.2, iters=5, maxdiff=True, use_pallas=True)
+                        lr=0.2, iters=5, maxdiff=True, body="corr")
     np.testing.assert_allclose(np.asarray(corr.c), np.asarray(ref.c),
                                rtol=1e-4, atol=1e-5)
 
@@ -238,10 +221,10 @@ def test_reanchor_forces_corr_path_on_any_platform():
 
 
 def test_reanchor_with_explicit_omega_body_rejected():
-    """An explicit use_pallas=False (ω-space cross-validation body) plus
+    """An explicit body="omega" (ω-space cross-validation body) plus
     reanchor_every is contradictory — fft_burst_dp raises like
     distributed_burst instead of silently rerouting (ADVICE r2)."""
     xs, out0, enc, dec = setup(b=2)
     with pytest.raises(ValueError, match="reanchor"):
         fft_burst_dp(xs, xs, out0, enc.c, dec.c, enc.b, dec.b,
-                     lr=0.2, iters=4, use_pallas=False, reanchor_every=2)
+                     lr=0.2, iters=4, body="omega", reanchor_every=2)

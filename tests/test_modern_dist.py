@@ -286,7 +286,7 @@ def test_distributed_burst_rejects_reanchor_with_explicit_body():
     from spectralae.train.fft_dp import distributed_burst
     m = dist.make_mesh(n_data=8)
     with pytest.raises(ValueError, match="reanchor_every"):
-        distributed_burst(m, use_pallas=False, reanchor_every=10)
+        distributed_burst(m, body="omega", reanchor_every=10)
 
 
 def test_optimizer_schedules_shape_lr():

@@ -1,7 +1,7 @@
 """Multi-process (multi-host) distribution: 2 OS processes × 4 CPU devices
 form one 8-device global mesh; the distributed train step and burst run
 across the process boundary with gloo collectives (the CPU stand-in for
-ICI/DCN — the reference has no multi-process capability at all,
+NCCL between hosts — the reference has no multi-process capability at all,
 SURVEY.md §2.9)."""
 
 import json

@@ -3,7 +3,7 @@
 The reference's CPU translation unit (source/netlib.cpp) is compiled in
 place by tests/reference_build.py and driven through flat-array ctypes
 entry points (tests/ref_shim.cpp).  Every test here compares this repo's
-TPU-native ops against the *running* reference code, not a transcription —
+ops against the *running* reference code, not a transcription —
 tests/oracle.py remains as a fast documented fallback, but this file is
 the authority for:
 
