@@ -323,38 +323,29 @@ def phase_large(nx=2048, iters=5, seed=0) -> dict:
 
 def phase_serve(nx=256, layers=3, batch=2, requests=3, seed=0,
                 platform="cuda") -> dict:
-    """A batch-polymorphic export of the forward for ``platform``, served
-    over HTTP (io/server.py) in this process; three POST /infer requests
-    from a client thread vs an in-process forward_fft (≤ 1e-5).
-
-    Where ``jax.export`` can serialize (it needs the ``flatbuffers``
-    package), the artifact goes through ``spectralae export --platforms``
-    and ``ServingModel.load``; elsewhere the same lowering is served
-    in memory (``build_export``), and the result says so."""
-    import importlib.util
+    """``spectralae export --platforms`` of the forward (batch-polymorphic),
+    loaded with ``ServingModel.load`` and served over HTTP (io/server.py)
+    in this process; three POST /infer requests from a client thread vs an
+    in-process forward_fft (≤ 1e-5)."""
     import urllib.request
 
     from spectralae.cli.main import _make_engine
-    from spectralae.io.export import ServingModel, build_export
+    from spectralae.io.export import ServingModel
     from spectralae.io.server import InferenceServer
 
     args = argparse.Namespace(nx=nx, ny=None, depth=3, seed=seed,
                               param_file=None, layers=layers)
     eng = _make_engine(args)
-    res = {"serialized": importlib.util.find_spec("flatbuffers") is not None}
+    res = {}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        if res["serialized"]:
-            art = str(Path(tmp) / "art")
-            _run_cli(["export", "--nx", str(nx), "--layers", str(layers),
-                      "--seed", str(seed), "--out", art,
-                      "--platforms", platform])
-            served = ServingModel.load(art)
-        else:
-            served = ServingModel(*build_export(eng.params, eng.spec,
-                                                platforms=(platform,)))
+        art = str(Path(tmp) / "art")
+        _run_cli(["export", "--nx", str(nx), "--layers", str(layers),
+                  "--seed", str(seed), "--out", art, "--platforms", platform])
+        served = ServingModel.load(art)
         res["export_wall_s_incl_compile"] = time.perf_counter() - t0
         res["platforms"] = served.manifest["platforms"]
+        res["batch"] = served.manifest["batch"]
         srv = InferenceServer(served, port=0, warmup=True)
         srv.start()
         xs = [np.random.default_rng(seed + i).uniform(
@@ -388,7 +379,8 @@ def phase_serve(nx=256, layers=3, batch=2, requests=3, seed=0,
     with jax.default_matmul_precision(HIGHEST):
         res["norm_rel"] = [rel(o, fwd(eng.params, jnp.asarray(x)))
                            for o, x in zip(outs, xs)]
-    res["ok"] = (all(o.shape == x.shape for o, x in zip(outs, xs))
+    res["ok"] = (res["batch"] is None
+                 and all(o.shape == x.shape for o, x in zip(outs, xs))
                  and max(res["norm_rel"]) <= 1e-5)
     return res
 

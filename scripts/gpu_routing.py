@@ -70,10 +70,10 @@ def conv_contenders(reps, shapes=((256, 8), (512, 4)), step_nx=256):
     opt = init_opt_state(params)
     xb = jnp.asarray(rng.uniform(0, 255, size=(8, 3, step_nx, step_nx)
                                  ).astype(np.float32))
-    saved = backend._CONV_IMPL["gpu"]
+    saved = backend.spectral_conv_impl
     try:
         for name in IMPLS:
-            backend._CONV_IMPL["gpu"] = name
+            backend.spectral_conv_impl = lambda *a, name=name, **k: name
             jax.clear_caches()
             step = lambda: train_step(params, opt, xb, spec.scales, lr=0.2,
                                       domain="fft")
@@ -83,7 +83,7 @@ def conv_contenders(reps, shapes=((256, 8), (512, 4)), step_nx=256):
                               "ms_per_step": ms,
                               "loss": float(step().loss)}), flush=True)
     finally:
-        backend._CONV_IMPL["gpu"] = saved
+        backend.spectral_conv_impl = saved
         jax.clear_caches()
 
 

@@ -1,17 +1,17 @@
-"""The one place that chooses an algorithm or a kernel by backend.
+"""The one place that chooses an algorithm by backend.
 
-Every routing decision of the package reads the backend from
-``jax.default_backend()`` and the input's shape here, and nowhere else:
+Every routing decision of the package checks the backend from
+``jax.default_backend()`` here, and nowhere else:
 
 - :func:`burst_body` — which momentum-space burst body ``auto_burst``
   (train/fft_corr.py) and ``fft_burst_dp`` (train/fft_dp.py) run;
 - :func:`spectral_conv_impl` — how ``spectral_conv`` (ops/spectral.py)
   evaluates the pointwise complex-multiply conv.
 
-Two backends are known: ``"gpu"`` (an NVIDIA card through XLA's CUDA
-backend; the choices follow the measurements recorded in CHANGES.md) and
-``"cpu"`` (tests and rehearsal).  Any other backend is an error that names
-it, never a silent default.
+Two backends are known, and both take the choices measured on the GPU
+(CHANGES.md): ``"gpu"`` (an NVIDIA card through XLA's CUDA backend) and
+``"cpu"`` (tests and rehearsal, which so run the card's code).  Any other
+backend is an error that names it, never a silent default.
 """
 
 from __future__ import annotations
@@ -19,21 +19,6 @@ from __future__ import annotations
 import jax
 
 BACKENDS = ("gpu", "cpu")
-
-# burst body per backend: "corr" is the correlation-space body
-# (train/fft_corr.py — one precompute, then resolution-independent
-# iterations); "omega" the ω-space jnp body (train/fft.py, four FFT-sized
-# passes per iteration).  On the GPU the corr body is the faster one at
-# every frame size measured; the CPU keeps the ω-space body the test
-# suite cross-validates against.
-_BURST_BODY = {"gpu": "corr", "cpu": "omega"}
-
-# pointwise conv evaluation per backend (see ops/spectral.py):
-# "einsum" — one complex einsum; "split" — re/im broadcast-multiply-sum,
-# which XLA fuses with its neighbours.  On the GPU the split form gives the
-# fastest batched autodiff step (it also beat a Pallas kernel on the
-# Triton route end to end, so no kernel is kept); the CPU keeps the einsum.
-_CONV_IMPL = {"gpu": "split", "cpu": "einsum"}
 
 
 def backend(name: str | None = None) -> str:
@@ -47,19 +32,19 @@ def backend(name: str | None = None) -> str:
 
 
 def burst_body(name: str | None = None) -> str:
-    """``"corr"`` or ``"omega"``: the burst body for this backend."""
-    return _BURST_BODY[backend(name)]
+    """The burst body: ``"corr"``, the correlation-space body
+    (train/fft_corr.py — one precompute, then resolution-independent
+    iterations), faster on the GPU than the ω-space body (train/fft.py,
+    four FFT-sized passes per iteration) at every frame size measured."""
+    backend(name)
+    return "corr"
 
 
-def spectral_conv_impl(shape: tuple, compute_dtype=None,
-                       name: str | None = None) -> str:
-    """How ``spectral_conv`` evaluates an input spectrum of ``shape``.
-
-    Reduced-precision operand streaming (``compute_dtype``) and symbolic
-    dimensions (batch-polymorphic exports) always take the einsum.
-    """
-    impl = _CONV_IMPL[backend(name)]
-    concrete = all(type(s) is int for s in shape)
-    if compute_dtype is not None or not concrete or len(shape) != 4:
-        return "einsum"
-    return impl
+def spectral_conv_impl(compute_dtype=None, name: str | None = None) -> str:
+    """How ``spectral_conv`` evaluates: ``"split"``, re/im
+    broadcast-multiply-sums that XLA fuses with their neighbours (the
+    fastest batched autodiff step on the GPU, ahead of the einsum and of a
+    Pallas kernel on the Triton route); ``"einsum"`` for reduced-precision
+    operand streaming (``compute_dtype``), which the split form lacks."""
+    backend(name)
+    return "split" if compute_dtype is None else "einsum"

@@ -17,7 +17,7 @@ way to compute them, but by Parseval it is algebraically identical to:
 This removes the signal FFTs entirely, making the precompute FFT-free.  As
 plain XLA it is a *correctness alternative*, not a speed path: the shift
 stacks materialize in device memory and the lag contraction is a skinny
-matmul (stay on the spectral route for speed; `pallas_windows="pixel"` is
+matmul (stay on the spectral route for speed; `precompute="pixel"` is
 opt-in).  The
 anchoring-precision contract is preserved: ``eg`` is computed *per pixel*
 as a 243-term f32 contraction minus x (error at signal·eps scale, exactly

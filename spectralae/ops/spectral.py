@@ -134,8 +134,7 @@ def spectral_conv(X: jax.Array, C: jax.Array, b: jax.Array, nx: int, ny: int,
         streamed operands; accumulation stays f32.
     """
     from ..core.backend import spectral_conv_impl
-    impl = spectral_conv_impl(X.shape, compute_dtype)
-    if impl == "split":
+    if spectral_conv_impl(compute_dtype) == "split":
         return spectral_conv_split(X, C, b, nx, ny, scale_by_dm=scale_by_dm)
     return spectral_conv_einsum(X, C, b, nx, ny, scale_by_dm=scale_by_dm,
                                 compute_dtype=compute_dtype)

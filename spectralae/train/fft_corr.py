@@ -332,7 +332,7 @@ def _tp_xla_windows(X, K0taps, nx, ny, nyr, B, dD, dd, hx2, hy2, hx4,
 
 def corr_precompute_fused(x, c0, f0, b0, p0, *, scale_by_dm=True,
                           axis_name=None, model_axis=None,
-                          pallas_windows=None):
+                          precompute="spectral"):
     """Precompute for the case ``expout = x`` AND ``out0 = the model's own
     two-stage forward of x`` (every steady-state streaming call site).
 
@@ -387,15 +387,14 @@ def corr_precompute_fused(x, c0, f0, b0, p0, *, scale_by_dm=True,
     dE0 = norm * (s2 * _mm(fs0, b0) + p0)               # [D]
     wv = jnp.asarray(_herm_w(nx, ny))
 
-    if pallas_windows == "pixel" and model_axis is not None:
+    if precompute not in ("spectral", "pixel"):
+        raise ValueError(f"precompute={precompute!r}: the routes are "
+                         "'spectral' and 'pixel'")
+    if precompute == "pixel" and model_axis is not None:
         raise ValueError(
-            "pallas_windows='pixel' has no model-sharded variant — use the "
-            "spectral route (None) under tensor parallelism")
-    if pallas_windows not in (None, False, "pixel"):
-        raise ValueError(f"pallas_windows={pallas_windows!r}: the "
-                         "precompute routes are None/False (spectral) and "
-                         "'pixel'")
-    if pallas_windows == "pixel":
+            "precompute='pixel' has no model-sharded variant — use the "
+            "'spectral' route under tensor parallelism")
+    if precompute == "pixel":
         # FFT-free: every precompute quantity computed directly in pixel
         # space (ops/pixel_corr.py — same anchoring-precision contract,
         # equality-tested vs this spectral branch)
@@ -753,7 +752,7 @@ def burst_corr(x, expout, out0, c, f, b, p, mom=None, *,
                w0=1.0, w1=10.0, scale_by_dm=True,
                axis_name=None, model_axis=None,
                reanchor_every=None,
-               pallas_windows=None) -> FFTBurstResult:
+               precompute="spectral") -> FFTBurstResult:
     """Correlation-space burst; semantics of ``fft_burst``/``fft_burst_dp``.
 
     ``x/expout/out0``: ``[D, h, w]`` or batched ``[B, D, h, w]`` (gradients
@@ -777,16 +776,18 @@ def burst_corr(x, expout, out0, c, f, b, p, mom=None, *,
     exact DC scalars on top of the continuum (:func:`corr_precompute_fused`
     — no out0 FFT, no XG0 plane transforms).  Requires ``expout`` None/x
     (the steady-state streaming contract); reanchor segments then
-    re-anchor without any pixel-space forward round-trip.
+    re-anchor without any pixel-space forward round-trip.  ``precompute``
+    picks the fused precompute's route: ``"spectral"`` (FFTs) or
+    ``"pixel"`` (FFT-free, ops/pixel_corr.py).
     """
     fused = out0 is None
     if fused and not (expout is None or expout is x):
         raise ValueError("out0=None (fused anchor forward) trains against "
                          "the input; pass expout=None")
-    if pallas_windows is not None and not fused:
-        raise ValueError("pallas_windows only exists on the fused-anchor "
-                         "precompute (out0=None) — drop it or the "
-                         "explicit out0")
+    if precompute != "spectral" and not fused:
+        raise ValueError("precompute='pixel' only exists on the "
+                         "fused-anchor precompute (out0=None) — drop it or "
+                         "the explicit out0")
     if expout is None:
         expout = x
     if x.ndim == 3:
@@ -796,20 +797,20 @@ def burst_corr(x, expout, out0, c, f, b, p, mom=None, *,
     nx, ny = x.shape[-2], x.shape[-1]
     vary = (model_axis,) if model_axis else ()
 
-    def precompute(out_cur, c, f, b, p):
+    def anchor(out_cur, c, f, b, p):
         if out_cur is None:
             return corr_precompute_fused(x, c, f, b, p,
                                          scale_by_dm=scale_by_dm,
                                          axis_name=axis_name,
                                          model_axis=model_axis,
-                                         pallas_windows=pallas_windows)
+                                         precompute=precompute)
         return corr_precompute(x, expout, out_cur, c, f,
                                scale_by_dm=scale_by_dm,
                                axis_name=axis_name, model_axis=model_axis)
 
     if iters == 0:
         # zero updates: report mses[0] only (the ω-space paths' semantics)
-        T0 = precompute(out0, c, f, b, p)
+        T0 = anchor(out0, c, f, b, p)
         mse_norm = 1.0 / (c.shape[1] * nx * ny) / (2 * c.shape[0] * nx * ny)
         if mom is None:
             mom = (jnp.zeros_like(c), jnp.zeros_like(f),
@@ -818,7 +819,7 @@ def burst_corr(x, expout, out0, c, f, b, p, mom=None, *,
                               mses=(T0["E0E0"] * mse_norm)[None])
 
     def segment(out_cur, c, f, b, p, mom, seg_iters):
-        T = precompute(out_cur, c, f, b, p)
+        T = anchor(out_cur, c, f, b, p)
         return corr_iterate(T, c, f, b, p, mom, nx=nx, ny=ny, lr=lr,
                             alpha=alpha, iters=seg_iters, maxdiff=maxdiff,
                             w0=w0, w1=w1, scale_by_dm=scale_by_dm,
@@ -850,26 +851,20 @@ def burst_corr(x, expout, out0, c, f, b, p, mom=None, *,
 fft_burst_corr = jax.jit(
     burst_corr,
     static_argnames=("iters", "maxdiff", "scale_by_dm", "axis_name",
-                     "model_axis", "reanchor_every", "pallas_windows"))
+                     "model_axis", "reanchor_every", "precompute"))
 
 
 def auto_burst(x, expout, out0, c, f, b, p, mom=None, *, lr=0.2, alpha=0.9,
                iters=100, maxdiff=False, w0=1.0, w1=10.0, scale_by_dm=True):
     """One burst through the body :func:`spectralae.core.backend.burst_body`
-    picks for this backend: this module's correlation-space body, or the
-    ω-space jnp body (:func:`spectralae.train.fft.fft_burst`)."""
+    picks, this module's correlation-space body (the ω-space jnp body,
+    :func:`spectralae.train.fft.fft_burst`, stays its reference)."""
     from ..core.backend import burst_body
-    if burst_body() == "corr":
-        # beyond the reference's 100 inner iterations, re-anchor each 100
-        # so the correlation algebra's precision floor follows the error
-        return fft_burst_corr(
-            x, expout, out0, c, f, b, p, mom, lr=lr, alpha=alpha,
-            iters=iters, maxdiff=maxdiff, w0=w0, w1=w1,
-            scale_by_dm=scale_by_dm,
-            reanchor_every=100 if iters > 100 else None)
-    from .fft import fft_burst
-    if expout is None:
-        expout = x  # the ω-space body has no None handling
-    return fft_burst(x, expout, out0, c, f, b, p, mom, lr=lr, alpha=alpha,
-                     iters=iters, maxdiff=maxdiff, w0=w0, w1=w1,
-                     scale_by_dm=scale_by_dm)
+    burst_body()        # "corr" on every known backend; raises on others
+    # beyond the reference's 100 inner iterations, re-anchor each 100 so
+    # the correlation algebra's precision floor follows the error
+    return fft_burst_corr(
+        x, expout, out0, c, f, b, p, mom, lr=lr, alpha=alpha,
+        iters=iters, maxdiff=maxdiff, w0=w0, w1=w1,
+        scale_by_dm=scale_by_dm,
+        reanchor_every=100 if iters > 100 else None)

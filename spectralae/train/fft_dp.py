@@ -140,12 +140,11 @@ def fft_burst_dp(x: jax.Array, expout: jax.Array, out0: jax.Array,
 
     ``body``: ``"corr"`` (the correlation-space body, train/fft_corr),
     ``"omega"`` (the jnp ω-space body, kept for cross-validation), or
-    ``None`` — :func:`spectralae.core.backend.burst_body` decides, except
-    that ``reanchor_every`` needs the corr body and so selects it."""
+    ``None`` — :func:`spectralae.core.backend.burst_body` decides."""
     _check_body(body, reanchor_every)
     if body is None:
         from ..core.backend import burst_body
-        body = "corr" if reanchor_every is not None else burst_body()
+        body = burst_body()
     if mom is None:
         mom = (jnp.zeros_like(c), jnp.zeros_like(f),
                jnp.zeros_like(b), jnp.zeros_like(p))

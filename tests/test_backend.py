@@ -16,23 +16,15 @@ from spectralae.train.fft import fft_burst
 from spectralae.train.fft_corr import auto_burst, fft_burst_corr
 from spectralae.train.fft_dp import fft_burst_dp
 
-# the table the GPU measurements chose (CHANGES.md) and the CPU keeps
-BURST = {"gpu": "corr", "cpu": "omega"}
-CONV = {"gpu": backend._CONV_IMPL["gpu"], "cpu": "einsum"}
-SHAPES = {"256b8": (8, 3, 256, 129), "512b4": (4, 3, 512, 257),
-          "16b1": (1, 3, 16, 9)}
+import oracle
 
 
-@pytest.mark.parametrize("site", ["auto_burst", "fft_burst_dp",
-                                  "spectral_conv"])
-@pytest.mark.parametrize("size", sorted(SHAPES))
 @pytest.mark.parametrize("name", ["gpu", "cpu"])
-def test_routing_table(name, size, site):
-    if site == "spectral_conv":
-        got = backend.spectral_conv_impl(SHAPES[size], name=name)
-        assert got == CONV[name]
-    else:
-        assert backend.burst_body(name) == BURST[name]
+def test_routing_table(name):
+    """Both known backends take the choices measured on the GPU."""
+    assert backend.burst_body(name) == "corr"
+    assert backend.spectral_conv_impl(name=name) == "split"
+    assert backend.spectral_conv_impl(jnp.bfloat16, name=name) == "einsum"
 
 
 @pytest.mark.parametrize("name", ["rocm", "METAL", "neuron"])
@@ -43,16 +35,35 @@ def test_unknown_backend_raises(name, monkeypatch):
     with pytest.raises(RuntimeError, match=name):
         backend.burst_body()
     with pytest.raises(RuntimeError, match=name):
-        backend.spectral_conv_impl((1, 3, 16, 9))
+        backend.spectral_conv_impl()
 
 
-@pytest.mark.parametrize("name", ["gpu", "cpu"])
-def test_polymorphic_and_reduced_precision_take_einsum(name):
+@pytest.mark.parametrize("batch", [1, 3])
+def test_polymorphic_export_takes_split(batch, monkeypatch):
+    """A batch-polymorphic export (the serving path) traces spectral_conv
+    with a symbolic batch and still takes the split form; the result
+    matches the numpy oracle."""
+    cfg = Config(nx=32, ny=32, d=3,
+                 layer=LayerParams(depth=4, lk=1, ll=1, scale=2, rmax=1.0))
+    spec = initial_spec(cfg)
+    params = init_params(jax.random.key(0), spec, 1.0)
+
+    def no_einsum(*a, **k):
+        raise AssertionError("the einsum form was traced")
+    monkeypatch.setattr(spectral, "spectral_conv_einsum", no_einsum)
     (b,) = jax.export.symbolic_shape("b")
-    assert backend.spectral_conv_impl((b, 3, 16, 9), name=name) == "einsum"
-    assert backend.spectral_conv_impl((2, 3, 16, 9), jnp.bfloat16,
-                                      name=name) == "einsum"
-    assert backend.spectral_conv_impl((3, 16, 9), name=name) == "einsum"
+    exp = jax.export.export(jax.jit(
+        lambda v: model.forward_fft(params, v, spec.scales)))(
+        jax.ShapeDtypeStruct((b, 3, 32, 32), jnp.float32))
+    x = np.random.default_rng(batch).uniform(
+        0, 255, size=(batch, 3, 32, 32)).astype(np.float32)
+    got = np.asarray(exp.call(jnp.asarray(x)))
+    assert got.shape == x.shape
+    stages = [(np.asarray(st.c, np.float64), np.asarray(st.b, np.float64))
+              for st in params.stages]
+    want = oracle.forward_fft_ref(stages, x[-1].astype(np.float64),
+                                  spec.scales)
+    assert np.linalg.norm(got[-1] - want) / np.linalg.norm(want) <= 1e-5
 
 
 def _burst_setup(nx=16):
@@ -73,10 +84,7 @@ def test_auto_burst_runs_the_routed_body(name, monkeypatch):
     args = (enc.c, dec.c, enc.b, dec.b)
     monkeypatch.setattr(jax, "default_backend", lambda: name)
     got = auto_burst(x, None, out0, *args, lr=0.2, iters=4)
-    if BURST[name] == "corr":
-        want = fft_burst_corr(x, None, out0, *args, lr=0.2, iters=4)
-    else:
-        want = fft_burst(x, x, out0, *args, lr=0.2, iters=4)
+    want = fft_burst_corr(x, None, out0, *args, lr=0.2, iters=4)
     np.testing.assert_allclose(np.asarray(got.c), np.asarray(want.c),
                                rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(np.asarray(got.mses), np.asarray(want.mses),
@@ -88,7 +96,7 @@ def test_fft_burst_dp_runs_the_routed_body(name, monkeypatch):
     x, out0, enc, dec = _burst_setup()
     args = (enc.c, dec.c, enc.b, dec.b)
     want = fft_burst_dp(x[None], None, out0[None], *args, lr=0.2, iters=4,
-                        body=BURST[name])
+                        body="corr")
     monkeypatch.setattr(jax, "default_backend", lambda: name)
     jax.clear_caches()      # the routing is resolved at trace time
     try:
@@ -110,10 +118,10 @@ def test_fft_burst_dp_rejects_unknown_body():
                      iters=2, body="pallas")
 
 
-def test_spectral_conv_follows_the_table(monkeypatch):
-    """On the CPU spectral_conv is the einsum; under a "gpu" backend it
-    takes the table's entry (evaluated here through its jnp twin when the
-    entry is the kernel, which only compiles for a card)."""
+@pytest.mark.parametrize("name", ["gpu", "cpu"])
+def test_spectral_conv_follows_the_table(name, monkeypatch):
+    """spectral_conv is the split form in f32 and the einsum with a
+    reduced compute dtype; the two forms agree."""
     rng = np.random.default_rng(0)
     nx = ny = 16
     X = jnp.asarray(np.fft.rfft2(rng.normal(size=(2, 3, nx, ny))).astype(
@@ -121,16 +129,20 @@ def test_spectral_conv_follows_the_table(monkeypatch):
     C = jnp.asarray(np.fft.rfft2(rng.normal(size=(4, 3, nx, ny))).astype(
         np.complex64))
     b = jnp.asarray(rng.normal(size=(4,)).astype(np.float32))
-    want = spectral.spectral_conv_einsum(X, C, b, nx, ny)
+    monkeypatch.setattr(jax, "default_backend", lambda: name)
+    got = spectral.spectral_conv(X, C, b, nx, ny)
     np.testing.assert_array_equal(
-        np.asarray(spectral.spectral_conv(X, C, b, nx, ny)),
-        np.asarray(want))
-    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
-    if CONV["gpu"] == "split":
-        got = spectral.spectral_conv(X, C, b, nx, ny)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=1e-4, atol=1e-3)
-    assert backend.spectral_conv_impl(X.shape) == CONV["gpu"]
+        np.asarray(got), np.asarray(spectral.spectral_conv_split(
+            X, C, b, nx, ny)))
+    np.testing.assert_allclose(
+        np.asarray(got),
+        np.asarray(spectral.spectral_conv_einsum(X, C, b, nx, ny)),
+        rtol=1e-4, atol=1e-3)
+    np.testing.assert_array_equal(
+        np.asarray(spectral.spectral_conv(X, C, b, nx, ny,
+                                          compute_dtype=jnp.bfloat16)),
+        np.asarray(spectral.spectral_conv_einsum(
+            X, C, b, nx, ny, compute_dtype=jnp.bfloat16)))
 
 
 def test_fft_and_dft_impls_agree():

@@ -48,19 +48,17 @@ def test_phase_large_fused_burst():
     assert res["memory_analysis"]["temp_size_in_bytes"] >= 0
 
 
-@pytest.mark.parametrize("serialized", [True, False])
-def test_phase_serve_over_http(serialized, monkeypatch):
-    """Through the on-disk artifact, and in memory where jax.export cannot
-    serialize (no flatbuffers)."""
-    import importlib.util
-    if not serialized:
-        find = importlib.util.find_spec
-        monkeypatch.setattr(importlib.util, "find_spec", lambda n, *a: (
-            None if n == "flatbuffers" else find(n, *a)))
+@pytest.mark.parametrize("flatbuffers", ["importable", "blocked"])
+def test_phase_serve_over_http(flatbuffers, monkeypatch):
+    """Export, load and serve through the on-disk artifact, also where
+    ``flatbuffers`` (jax.export's own serialization) cannot be imported."""
+    if flatbuffers == "blocked":
+        for mod in ("flatbuffers", "jax._src.export.serialization"):
+            monkeypatch.setitem(sys.modules, mod, None)
     res = cs.phase_serve(nx=32, layers=2, batch=1, requests=2,
                          platform="cpu")
     assert res["ok"], res
-    assert res["serialized"] is serialized
+    assert res["batch"] is None
     assert len(res["norm_rel"]) == 2 and res["platforms"] == ["cpu"]
 
 

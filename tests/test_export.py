@@ -1,6 +1,10 @@
 """AOT export/serving artifact tests (spectralae.io.export)."""
 
 import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -11,8 +15,11 @@ import jax.numpy as jnp
 from spectralae.core.config import Config, LayerParams
 from spectralae.core.types import initial_spec, init_params
 from spectralae.io import checkpoint as ckpt
+from spectralae.io import export as export_mod
 from spectralae.io.export import ServingModel, export_model
 from spectralae.model import autoencoder as model
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def _small_net(nx=32, layers=1, seed=0):
@@ -115,6 +122,84 @@ def test_export_multiplatform_lowering(tmp_path):
     want = model.forward_fft(params, x, spec.scales)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("batch", [None, 2])
+@pytest.mark.parametrize("platforms", [None, ("cpu", "cuda")])
+def test_signature_round_trip(batch, platforms):
+    """The manifest's signature rebuilds the Exported that was lowered."""
+    _, spec, params = _small_net()
+    if batch is None:
+        (b,) = jax.export.symbolic_shape("b")
+    else:
+        b = batch
+    kw = {} if platforms is None else {"platforms": platforms}
+    ex = jax.export.export(jax.jit(
+        lambda v: model.forward_fft(params, v, spec.scales)), **kw)(
+        jax.ShapeDtypeStruct((b, 3, 32, 32), jnp.float32))
+    sig = json.loads(json.dumps(export_mod._signature(ex)))
+    got = export_mod._exported(sig, ex.mlir_module_serialized)
+    for field in ("fun_name", "in_tree", "out_tree", "platforms",
+                  "nr_devices", "calling_convention_version",
+                  "module_kept_var_idx", "uses_global_constants",
+                  "mlir_module_serialized"):
+        assert getattr(got, field) == getattr(ex, field), field
+    # symbolic dimensions of two scopes never compare equal: compare text
+    for field in ("in_avals", "out_avals"):
+        assert str(getattr(got, field)) == str(getattr(ex, field)), field
+    x = jnp.asarray(np.random.default_rng(2).normal(
+        size=(2, 3, 32, 32)).astype(np.float32))
+    np.testing.assert_array_equal(np.asarray(got.call(x)),
+                                  np.asarray(ex.call(x)))
+
+
+def test_signature_rejects_non_serving_function():
+    ex = jax.export.export(jax.jit(lambda v: (v, 2 * v)))(
+        jax.ShapeDtypeStruct((2, 3), jnp.float32))
+    with pytest.raises(ValueError, match="one array"):
+        export_mod._signature(ex)
+
+
+def test_load_rejects_other_format_version(tmp_path):
+    _, spec, params = _small_net()
+    path = export_model(params, spec, tmp_path / "art", batch=1)
+    manifest = json.loads((path / "manifest.json").read_text())
+    manifest["format_version"] = 1
+    (path / "manifest.json").write_text(json.dumps(manifest))
+    with pytest.raises(ValueError, match="format version 1"):
+        ServingModel.load(path)
+
+
+_NO_FLATBUFFERS = """
+import sys
+sys.modules["flatbuffers"] = None      # import flatbuffers -> ImportError
+import numpy as np, jax, jax.numpy as jnp
+from spectralae.io.export import ServingModel
+m = ServingModel.load(sys.argv[1])
+b = m.manifest["batch"] or 3
+x = np.random.default_rng(0).normal(size=(b, 3, 32, 32)).astype(np.float32)
+np.save(sys.argv[2], np.asarray(m(jnp.asarray(x))))
+np.save(sys.argv[3], x)
+"""
+
+
+@pytest.mark.parametrize("batch", [None, 2])
+def test_artifact_serves_without_flatbuffers(tmp_path, batch):
+    """An artifact loads and runs in a process that cannot import
+    ``flatbuffers``, which jax.export's own serialization needs."""
+    _, spec, params = _small_net()
+    path = export_model(params, spec, tmp_path / "art", batch=batch,
+                        platforms=("cpu", "cuda"))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    out, inp = tmp_path / "out.npy", tmp_path / "in.npy"
+    subprocess.run([sys.executable, "-c", _NO_FLATBUFFERS, str(path),
+                    str(out), str(inp)], cwd=ROOT, env=env, check=True,
+                   timeout=300)
+    x = jnp.asarray(np.load(inp))
+    np.testing.assert_allclose(
+        np.load(out), np.asarray(model.forward_fft(params, x, spec.scales)),
+        rtol=1e-5, atol=1e-4)
 
 
 def test_cli_export_and_serve(tmp_path, capsys):

@@ -338,9 +338,9 @@ def test_pixel_precompute_matches_spectral(nx, lk, ll, d, m, b):
     x, _, enc, dec = setup(nx=nx, d=d, m=m, lk=lk, ll=ll, b=b)
     xb = x if b else x[None]
     Ts = corr_precompute_fused(xb, enc.c, dec.c, enc.b, dec.b,
-                               pallas_windows=False)
+                               precompute="spectral")
     Tp = corr_precompute_fused(xb, enc.c, dec.c, enc.b, dec.b,
-                               pallas_windows="pixel")
+                               precompute="pixel")
     assert set(Ts) == set(Tp)
     lag_scale = max(float(np.max(np.abs(np.asarray(Ts[k]))))
                     for k in ("XX", "XE0", "XG0"))
@@ -362,9 +362,9 @@ def test_pixel_burst_matches_spectral(batch, maxdiff, reanchor):
     x, _, enc, dec = setup(b=batch)
     kw = dict(lr=0.2, iters=9, maxdiff=maxdiff, reanchor_every=reanchor)
     ref = fft_burst_corr(x, None, None, enc.c, dec.c, enc.b, dec.b,
-                         pallas_windows=False, **kw)
+                         precompute="spectral", **kw)
     got = fft_burst_corr(x, None, None, enc.c, dec.c, enc.b, dec.b,
-                         pallas_windows="pixel", **kw)
+                         precompute="pixel", **kw)
     assert_matches(got, ref, rtol=2e-4, atol=2e-4)
 
 
@@ -377,10 +377,21 @@ def test_pixel_precompute_rejects_model_axis():
     def run(xb):
         return corr_precompute_fused(xb, enc.c, dec.c, enc.b, dec.b,
                                      model_axis="model",
-                                     pallas_windows="pixel")
+                                     precompute="pixel")
     with pytest.raises(ValueError, match="pixel"):
         shard_map(run, mesh=m, in_specs=(P(),), out_specs=P(),
                   check_vma=False)(x[None])
+
+
+@pytest.mark.parametrize("precompute,fused,match", [
+    ("fft", True, "routes are"),           # no such route
+    ("pixel", False, "fused-anchor"),      # pixel needs out0=None
+])
+def test_precompute_route_errors(precompute, fused, match):
+    x, out0, enc, dec = setup()
+    with pytest.raises(ValueError, match=match):
+        fft_burst_corr(x, None, None if fused else out0, enc.c, dec.c,
+                       enc.b, dec.b, iters=2, precompute=precompute)
 
 
 def test_fused_burst_matches_dft_at_large_grid():
@@ -429,10 +440,10 @@ def test_serialized_fft_equality(monkeypatch):
     from spectralae.train import fft_corr as fc
     x, _, enc, dec = setup(nx=32, d=3, b=2)
     batched = fc.corr_precompute_fused(x, enc.c, dec.c, enc.b, dec.b,
-                                       pallas_windows=False)
+                                       precompute="spectral")
     monkeypatch.setattr(fc, "_XLA_FFT_SERIALIZE_PIXELS", 0)
     serial = fc.corr_precompute_fused(x, enc.c, dec.c, enc.b, dec.b,
-                                      pallas_windows=False)
+                                      precompute="spectral")
     assert set(batched) == set(serial)
     for k in batched:
         np.testing.assert_allclose(np.asarray(serial[k]),
